@@ -15,7 +15,22 @@
    ``.bench/``) through ``hevc_tpu_torch.cli.main`` and checks every
    frame's SEI MD5, that both kernels launched on that run and that the
    outputs lived on the card;
-5. prints the kernel table and the card as JSON; the last line is
+5. the CABAC path: captures every WPP substream of that 1080p stream
+   with the JAX package's Python engine (one row per substream) and
+   encodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024); with the
+   launch count at 0, decodes all of them through
+   ``hevc_tpu_torch.cabac.decode_rows``; then holds the CABAC kernel's
+   bins against the captured bins, the encoder's bins and the plain
+   version (tolerance 0), and times kernel and plain version;
+6. the probe path: with the launch counts at 0, runs
+   ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the five
+   TMA window cases of ``tools/probe_dma.py``, the 2,880-block TMA
+   pipeline), checks each kernel against its plain version and the
+   window outcomes (four OK, the two at an unaligned inner offset as two
+   aligned boxes while one box there faults in a child process, and the
+   (40, 39) box refused by the tensor-map encoder), and times each kernel
+   beside its plain version;
+7. prints the kernel table and the card as JSON; the last line is
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits nonzero before the last line.  It
@@ -32,6 +47,8 @@ import sys
 import time
 
 import numpy as np
+
+from hevc_tpu_torch.device import cuda_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".bench")
@@ -61,22 +78,6 @@ def synth_stream(path, w, h, qp, frames, wpp=True, log2_ctb=6):
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over iters launches (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +318,99 @@ def phase_small_reference(dev):
     log("96x80 IPP/WPP: port on the card == inline NumPy decoder, MD5 ok")
 
 
+def phase_cabac(data, dev):
+    """The CABAC path on the 1080p stream's substreams and on random rows;
+    returns (launches, max_abs_err, ms, plain_ms) with both times on the
+    R = 132 set."""
+    import torch
+    from hevc_tpu_torch import build, cabac, cabac_cuda
+    t0 = time.perf_counter()
+    real = cabac.capture_substreams(data)
+    n_real = sum(len(r.sched) for r in real)
+    log(f"captured {len(real)} substreams, {n_real} bins (rows of "
+        f"{min(len(r.sched) for r in real)} to "
+        f"{max(len(r.sched) for r in real)}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rand = cabac.random_rows(np.random.default_rng(5), max(cabac.ROWS),
+                             cabac.N_BINS, init_types=(0, 1, 2))
+    log(f"encoded {len(rand)} random rows of {cabac.N_BINS} bins in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sets = {"1080p substreams": real}
+    sets.update({f"R={R}": rand[:R] for R in cabac.ROWS})
+    packed = {k: [t.to(dev) for t in cabac.pack_rows(v)]
+              for k, v in sets.items()}
+
+    # the counted run: every set through the entry point, count from 0
+    build.reset_launches()
+    got = {k: cabac.decode_rows(*p[:3]) for k, p in packed.items()}
+    torch.cuda.synchronize()
+    launches = build.launches["cabac"]
+    assert launches == len(sets), f"cabac launches {launches}"
+
+    err, ms = 0, {}
+    for k, rows in sets.items():
+        data_t, sched, init, lens = packed[k]
+        out = got[k].cpu()
+        for i, r in enumerate(rows):
+            assert out[i, :len(r.bins)].tolist() == r.bins, \
+                f"cabac_kernel: {k} row {i} != the Python engine's bins"
+        t0 = time.perf_counter()
+        plain = cabac.decode_rows_plain(data_t, sched, init)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        e = int((got[k] - plain).abs().max())
+        assert e == 0, f"cabac_kernel != plain on {k}"
+        err = max(err, e)
+        n = int(lens.sum())
+        ms[k] = cuda_ms(lambda: cabac_cuda.launch_cabac(
+            data_t, sched, init, sched.shape[1]), iters=10)
+        log(f"cabac {k}: {len(rows)} rows x {sched.shape[1]} bins; kernel "
+            f"== plain == expected; kernel {ms[k]} ms per launch, "
+            f"{n / ms[k] / 1e3} Mbins/s ({sched.numel() / ms[k] / 1e3} "
+            f"Mbins/s counting padding); plain {plain_s * 1e3} ms once")
+    data_t, sched, init, _ = packed["R=132"]
+    plain_ms = cuda_ms(lambda: cabac.decode_rows_plain(data_t, sched, init),
+                       iters=2, warmup=1)
+    log(f"cabac R=132: plain {plain_ms} ms (CUDA events)")
+    return launches, err, ms["R=132"], plain_ms
+
+
+# what the card answers: a window at an unaligned inner offset (x = 37
+# int32) moves as two aligned boxes, while one box there faults
+ONE_BOX_FAULT = ("OK as two aligned boxes; one box: fault, CUDA error 715 "
+                 "(an illegal instruction was encountered)")
+WINDOW_OUTCOMES = {
+    "fully aligned": "OK", "aligned-shape, odd offset": ONE_BOX_FAULT,
+    "rows8, lanes39":
+        "rejected at encode (CUresult 1 CUDA_ERROR_INVALID_VALUE)",
+    "aligned": "OK", "16x32 odd": ONE_BOX_FAULT}
+
+
+def phase_probes(dev):
+    """The probe path; returns {kernel: (launches, max_abs_err, ms,
+    plain_ms)}."""
+    import torch
+    from hevc_tpu_torch import build, probes
+    build.reset_launches()
+    res = probes.run_probes(dev, log=log)
+    torch.cuda.synchronize()
+    counts = {k: build.launches[k] for k in probes.PROBES}
+    assert all(v > 0 for v in counts.values()), counts
+    assert set(res["tile_shift"].values()) == {0}, res["tile_shift"]
+    assert res["tma_window"] == WINDOW_OUTCOMES, res["tma_window"]
+    assert res["tma_pipe"] == 0, "tma_pipe_kernel != plain"
+    times = probes.time_probes(dev)
+    ms, plain_ms = times["tma_pipe"]
+    log(f"tma pipe: {ms} ms per launch, {ms / probes.PIPE_BLOCKS * 1e3} "
+        f"us/block, {probes.PIPE_BYTES / ms / 1e6} GB/s "
+        f"({probes.PIPE_BYTES} B); plain index copy {plain_ms} ms")
+    log(f"probe times, ms (kernel, plain): {times}; launch counts {counts}")
+    errs = {"tile_shift": max(res["tile_shift"].values()),
+            "tma_window": res["tma_window_err"], "tma_pipe": res["tma_pipe"]}
+    return {k: (counts[k], errs[k]) + times[k] for k in counts}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -330,7 +424,7 @@ def main():
         f"cuda {torch.version.cuda}")
 
     from hevc_tpu import native, trace
-    from hevc_tpu_torch import build, cli, decoder, mc_cuda
+    from hevc_tpu_torch import build, cli, decoder
     dev = torch.device("cuda", 0)
     assert native.available(), "native stage A failed to build"
     t0 = time.perf_counter()
@@ -381,7 +475,7 @@ def main():
 
     decoder.finish_frame = finish
     trace.reset()
-    mc_cuda.reset_launches()
+    build.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -390,7 +484,7 @@ def main():
     finally:
         decoder.finish_frame = orig_finish
     wall = time.perf_counter() - t0
-    counts = dict(mc_cuda.launches)
+    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
     split = trace.report()
     out = buf.getvalue()
     log(out.strip())
@@ -417,6 +511,23 @@ def main():
             "replaces": f"hevc_tpu/tpu/mc_pallas.py:{line}",
             "launches": counts[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms})
+
+    n, err, ms, plain_ms = phase_cabac(data, dev)
+    kernels.append({
+        "name": "cabac_kernel", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/cabac.cu",
+        "replaces": "hevc_tpu/tpu/cabac_pallas.py:49", "launches": n,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    for name, (n, err, ms, plain_ms) in phase_probes(dev).items():
+        kernels.append({
+            "name": f"{name}_kernel", "route": "cuda",
+            "source": "hevc_tpu_torch/csrc/probes.cu",
+            "replaces": {"tile_shift": "tools/probe_roll.py:34",
+                         "tma_window": "tools/probe_dma.py:18",
+                         "tma_pipe": "tools/probe_roll.py:79"}[name],
+            "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms})
+    assert "jax" not in sys.modules, "the port imported jax"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ host pack helpers are imported from ``hevc_tpu``, which stays the
 bit-exact reference.  This package never imports JAX.
 
 Entry points: ``TorchDecoder`` (``decoder.py``) and
-``python -m hevc_tpu_torch.cli``.
+``python -m hevc_tpu_torch.cli``.  Beside the decoder, ``cabac.py`` ports
+the on-device CABAC engine (``hevc_tpu/tpu/cabac_pallas.py``) and
+``probes.py`` the Mosaic probes of ``tools/``, each with its Hopper kernel
+in ``csrc/``.
 """
 from .device import resolve_device
 

@@ -1,9 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and call into the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes.  The library is built at
-first use and rebuilt when a source is newer; it lands in ``build/`` next
-to this file, which ``.gitignore`` lists.
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and link into one shared library with a plain C
+interface, loaded with ctypes.  The library is built at first use and
+rebuilt when a source is newer; it lands in ``build/`` next to this file,
+which ``.gitignore`` lists.
+
+The wrappers (``mc_cuda``, ``cabac_cuda``, ``probes``) share what is kept
+here: the tensor check, the error check and the launch counts.  Each
+launch of a kernel adds one to ``launches[name]``; nothing else touches
+the counts.
 """
 from __future__ import annotations
 
@@ -12,17 +18,29 @@ import glob
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _OUT = os.path.join(_DIR, "build")
 _SO = os.path.join(_OUT, "libhevc_tpu_torch.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+
+launches = dict.fromkeys(("mc", "resid_add", "cabac", "tile_shift",
+                          "tma_window", "tma_pipe"), 0)
 
 _lock = threading.Lock()
 _lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 def _nvcc() -> str:
@@ -38,25 +56,35 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def _run(cmd) -> str:
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
+                           f"\n{r.stderr}")
+    return r.stderr
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library is missing or stale; return its
-    path.  Raises with nvcc's stderr if the compile fails."""
+    path.  Raises with nvcc's stderr if a compile or the link fails."""
     srcs = sources()
     deps = srcs + glob.glob(os.path.join(_CSRC, "*.cuh"))
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= max(
             os.path.getmtime(p) for p in deps):
         return _SO
     os.makedirs(_OUT, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
-                           f"\n{r.stderr}")
+    nvcc = _nvcc()
+    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+    with tempfile.TemporaryDirectory(dir=_OUT) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        with ThreadPoolExecutor(len(srcs)) as ex:
+            logs = list(ex.map(_run, ([nvcc, *flags, "-c", "-o", o, s]
+                                      for s, o in zip(srcs, objs))))
+        lib = os.path.join(tmp, "lib.so")
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        os.replace(lib, _SO)
     if verbose:
-        print(r.stderr, end="")
-    os.replace(tmp, _SO)
+        print("".join(logs), end="")
     return _SO
 
 
@@ -73,7 +101,41 @@ def load() -> C.CDLL:
             lib.hevc_resid_add_launch.argtypes = [p, i, i, p, i, p, i, i, i,
                                                   p]
             lib.hevc_resid_add_launch.restype = i
+            lib.hevc_cabac_launch.argtypes = [p, i, p, i, i, p, i, p, i, p,
+                                              p]
+            lib.hevc_cabac_launch.restype = i
+            lib.hevc_tile_shift_launch.argtypes = [p, i, i, p, i, i, i, p, p]
+            lib.hevc_tile_shift_launch.restype = i
+            ip = C.POINTER(C.c_int)
+            lib.hevc_tma_window_launch.argtypes = [p, i, i, i, i, i, i, i, i,
+                                                   p, p, ip]
+            lib.hevc_tma_window_launch.restype = i
+            lib.hevc_tma_pipe_launch.argtypes = [p, p, i, i, p, i, i, i, p,
+                                                 ip]
+            lib.hevc_tma_pipe_launch.restype = i
+            lib.hevc_stream_sync.argtypes = [p]
+            lib.hevc_stream_sync.restype = i
             lib.hevc_cuda_error_string.argtypes = [i]
             lib.hevc_cuda_error_string.restype = C.c_char_p
             _lib = lib
         return _lib
+
+
+def check_tensor(name, t, dim, device) -> None:
+    """Raise unless ``t`` is a contiguous int32 ``dim``-D tensor on
+    ``device``: what a kernel's raw pointer assumes."""
+    if (t.device != device or t.dtype != torch.int32 or t.dim() != dim
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous int32 {dim}-D tensor "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def error_string(rc: int) -> str:
+    return load().hevc_cuda_error_string(rc).decode()
+
+
+def raise_on(rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc} ({error_string(rc)})")

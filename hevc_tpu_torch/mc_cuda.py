@@ -2,7 +2,7 @@
 
 For tensors on the CPU the wrappers run the plain versions in ``mc.py``;
 for CUDA tensors they launch the kernel or raise.  Each launch of a kernel
-adds one to ``launches[name]``; nothing else touches the counts.
+adds one to ``build.launches[name]``; nothing else touches the counts.
 """
 from __future__ import annotations
 
@@ -12,31 +12,6 @@ import torch
 from . import build
 from .mc import MC_COLS, mc_plain, resid_add_plain
 from .tables import tables_from_reference
-
-launches = {"mc": 0, "resid_add": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
-def _check(name, t, dim, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected int32")
-    if t.dim() != dim:
-        raise ValueError(f"{name}: {t.dim()}-D, expected {dim}-D")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _raise_on(rc, what):
-    if rc:
-        msg = build.load().hevc_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
-
 
 def mc_rows(groups, device):
     """Groups -> the kernel's int32 [N, 22] row table: (is_ch, bi, wp, w,
@@ -61,7 +36,7 @@ def launch_mc(canvas, refs_l, refs_c, rows, bd):
     dev = canvas.device
     for name, t, dim in (("canvas", canvas, 2), ("refs_l", refs_l, 3),
                          ("refs_c", refs_c, 3), ("rows", rows, 2)):
-        _check(name, t, dim, dev)
+        build.check_tensor(name, t, dim, dev)
     if rows.shape[1] != 5 + MC_COLS:
         raise ValueError(f"mc: row table {tuple(rows.shape)}")
     n = rows.shape[0]
@@ -76,8 +51,8 @@ def launch_mc(canvas, refs_l, refs_c, rows, bd):
             refs_c.data_ptr(), *refs_c.shape, rows.data_ptr(), n,
             tables["qpel"].data_ptr(), tables["epel"].data_ptr(), bd,
             torch.cuda.current_stream(dev).cuda_stream)
-    launches["mc"] += 1
-    _raise_on(rc, "mc_kernel")
+    build.launches["mc"] += 1
+    build.raise_on(rc, "mc_kernel")
     return canvas
 
 
@@ -98,7 +73,7 @@ def launch_resid_add(canvas, rows, pool, bd):
     dev = canvas.device
     for name, t, dim in (("canvas", canvas, 2), ("rows", rows, 2),
                          ("pool", pool, 3)):
-        _check(name, t, dim, dev)
+        build.check_tensor(name, t, dim, dev)
     s = pool.shape[-1]
     if s not in (4, 8, 16, 32) or pool.shape[1] != s or rows.shape[1] != 3:
         raise ValueError(f"resid_add: rows {tuple(rows.shape)}, pool "
@@ -112,8 +87,8 @@ def launch_resid_add(canvas, rows, pool, bd):
             canvas.data_ptr(), *canvas.shape, pool.data_ptr(),
             pool.shape[0], rows.data_ptr(), n, s, bd,
             torch.cuda.current_stream(dev).cuda_stream)
-    launches["resid_add"] += 1
-    _raise_on(rc, "resid_add_kernel")
+    build.launches["resid_add"] += 1
+    build.raise_on(rc, "resid_add_kernel")
     return canvas
 
 

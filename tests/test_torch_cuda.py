@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from hevc_tpu.tpu.pack import DUMP, PAD_REF
-from hevc_tpu_torch import mc_cuda
+from hevc_tpu_torch import build, mc_cuda
 from hevc_tpu_torch.mc import mc_plain, resid_add_plain
 from hevc_tpu_torch.pack import DUMP16
 from hevc_tpu_torch.tables import tables_from_reference
@@ -123,10 +123,10 @@ def test_mc_kernel_matches_plain_on_card(card, is_ch, bi, w, h, bd, wp):
     canvas = rng.integers(0, 1 << bd, (CH, CW)).astype(np.int32)
     r = torch.from_numpy(refs).to(card)
     groups = [(is_ch, bi, wp, 3, w, h, torch.from_numpy(rows).to(card))]
-    before = mc_cuda.launches["mc"]
+    before = build.launches["mc"]
     got = mc_cuda.mc(torch.from_numpy(canvas).to(card), r, r, groups, bd)
     torch.cuda.synchronize()
-    assert mc_cuda.launches["mc"] == before + 1
+    assert build.launches["mc"] == before + 1
     want = _port_mc(canvas, refs, [(is_ch, bi, wp, 3, w, h, rows)], bd)
     assert np.array_equal(got.cpu().numpy(), want)
 
@@ -137,10 +137,86 @@ def test_mc_kernel_matches_plain_on_card(card, is_ch, bi, w, h, bd, wp):
 def test_resid_kernel_matches_plain_on_card(card, cls, bd):
     canvas, fields, pools = _resid_case(cls, bd, n_pad=2)
     t = lambda a: torch.from_numpy(a).to(card)  # noqa: E731
-    before = mc_cuda.launches["resid_add"]
+    before = build.launches["resid_add"]
     got = mc_cuda.resid_add(t(canvas), [t(f) for f in fields],
                             [t(p) for p in pools], bd)
     torch.cuda.synchronize()
-    assert mc_cuda.launches["resid_add"] == before + 1
+    assert build.launches["resid_add"] == before + 1
     assert np.array_equal(got.cpu().numpy(),
                           _port_resid(canvas, fields, pools, bd))
+
+
+# ---------------------------------------------------------------------------
+# the CABAC kernel (csrc/cabac.cu) and the probe kernels (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,lengths", [(200, None), (5, (1, 700, 64, 333, 2))])
+def test_cabac_kernel_matches_plain_on_card(card, R, lengths):
+    from hevc_tpu_torch import cabac
+    rng = np.random.default_rng(R)
+    if lengths is None:
+        rows = cabac.random_rows(rng, R, 300, init_types=(0, 1, 2))
+    else:
+        rows = [cabac.random_rows(rng, 1, n, init_types=(k % 3,))[0]
+                for k, n in enumerate(lengths)]
+    data, sched, init, lens = (t.to(card) for t in cabac.pack_rows(rows))
+    before = build.launches["cabac"]
+    got = cabac.decode_rows(data, sched, init)
+    torch.cuda.synchronize()
+    assert build.launches["cabac"] == before + 1
+    assert torch.equal(got, cabac.decode_rows_plain(data, sched, init))
+    for k, r in enumerate(rows):
+        assert got[k, :len(r.bins)].tolist() == r.bins, f"row {k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("shift", [(3, 37), (-5, 300)])
+def test_tile_shift_kernel_matches_plain_on_card(card, mode, shift):
+    from hevc_tpu_torch import probes
+    x = torch.arange(48 * 256, dtype=torch.int32, device=card).reshape(48, 256)
+    s = torch.tensor(shift, dtype=torch.int32, device=card)
+    got = probes.tile_shift(x, s, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.tile_shift_plain(x, s, mode))
+
+
+@pytest.mark.cuda
+def test_tma_window_outcomes_on_card(card):
+    from hevc_tpu_torch import probes
+    outcomes = probes.run_probes(card, log=lambda *a: None)
+    for c in probes.WINDOW_CASES:
+        got = outcomes["tma_window"][c.name]
+        if c.name == "rows8, lanes39":
+            assert got == ("rejected at encode (CUresult 1 "
+                           "CUDA_ERROR_INVALID_VALUE)")
+        elif c.origin[1] % 4:
+            assert got == ("OK as two aligned boxes; one box: fault, CUDA "
+                           "error 715 (an illegal instruction was "
+                           "encountered)"), c.name
+        else:
+            assert got == "OK", c.name
+    assert set(outcomes["tile_shift"].values()) == {0}
+    assert outcomes["tma_pipe"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_one_tma_box_at_an_unaligned_offset_faults_on_card(card, k):
+    """The fact the window probe exists to find, in a child process: one
+    TMA box at x = 37 int32 (148 B) is an illegal instruction."""
+    from hevc_tpu_torch import probes
+    assert probes.WINDOW_CASES[k].origin[1] % 4
+    assert probes.one_box_outcome(k).startswith("fault, CUDA error 715")
+
+
+@pytest.mark.cuda
+def test_tma_pipe_kernel_matches_plain_on_card(card):
+    from hevc_tpu_torch import probes
+    x = torch.randint(-2**31, 2**31 - 1, (1024, 1536), dtype=torch.int32,
+                      device=card)
+    org = probes.pipe_origins(500, seed=3).to(card)
+    got = probes.tma_pipe(x, org)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.pipe_plain(x, org))
