@@ -3,23 +3,29 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. checks that the native stage A is built (it would silently fall back
-   to Python otherwise) and builds the CUDA kernels from ``csrc/``;
+2. checks that the port's native stage A is built (with g++, into
+   ``hevc_tpu_torch/build/``; it would silently fall back to Python
+   otherwise) and builds the CUDA kernels from ``csrc/``;
 3. holds each kernel against its plain PyTorch version, bit for bit
-   (tolerance 0), on random cases of every MC flavour and residual class
-   and on the row sets of a real 1080p P frame, and times both versions
-   with CUDA events at those 1080p shapes;
+   (tolerance 0), on random cases of every MC flavour and residual class,
+   and on a picture's mixed MC groups and all four residual classes in
+   one launch each;
 4. decodes a 96x80 IPP stream on the card and compares it with the
-   inline NumPy decoder, then decodes a 4-frame 1920x1080 IPP/WPP stream
-   (the headline stream of ``bench.py``, cut to 4 frames and cached under
-   ``.bench/``) through ``hevc_tpu_torch.cli.main`` and checks every
-   frame's SEI MD5, that both kernels launched on that run and that the
-   outputs lived on the card;
+   port's inline NumPy decoder, then decodes a 4-frame 1920x1080 IPP/WPP
+   stream (the headline stream of ``bench.py``, cut to 4 frames and
+   cached under ``.bench/``) twice uncounted (the second capturing each
+   kernel's inputs) and once counted, through ``hevc_tpu_torch.cli.main``,
+   and checks every frame's SEI MD5, that MC launched once and the
+   residual add at most once per inter picture on that run, and that the
+   outputs lived on the card; then holds both kernels against their plain
+   versions on the captured rows of a real 1080p P frame and times them
+   there with CUDA events and ``torch.profiler`` (after the counted run,
+   which no profiler session may precede: see PERF.md);
 5. the CABAC path: captures every WPP substream of that 1080p stream
-   with the JAX package's Python engine (one row per substream) and
+   with the port's Python engine (one row per substream) and
    encodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024); with the
    launch count at 0, decodes all of them through
-   ``hevc_tpu_torch.cabac.decode_rows``; then holds the CABAC kernel's
+   ``hevc_tpu_torch.cabac.rows.decode_rows``; then holds the CABAC kernel's
    bins against the captured bins, the encoder's bins and the plain
    version (tolerance 0), and times kernel and plain version;
 6. the probe path: with the launch counts at 0, runs
@@ -30,8 +36,14 @@
    aligned boxes while one box there faults in a child process, and the
    (40, 39) box refused by the tensor-map encoder), and times each kernel
    beside its plain version;
-7. prints the kernel table and the card as JSON; the last line is
-   ``{"ok": true, "device": {...}}``.
+7. prints the kernel table as JSON: per kernel its launches on the
+   counted run, its error against the plain version, the kernel's, the
+   plain version's and (where one PyTorch call computes the same
+   function) that call's ms, and the bound: the larger of the bytes the
+   function must move over 3.35 TB/s and its operations over the card's
+   peak rate for their type; then the card, and last
+   ``{"ok": true, "device": {...}}``, after checking that neither
+   ``jax`` nor ``hevc_tpu`` was imported.
 
 Any failure raises, so the script exits nonzero before the last line.  It
 also exits nonzero at once without a visible CUDA device.
@@ -48,12 +60,21 @@ import time
 
 import numpy as np
 
-from hevc_tpu_torch.device import cuda_ms
+from hevc_tpu_torch.device import cuda_ms, profiler_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# (kernel name, launch) of each kernel to trace with torch.profiler once
+# every other phase is done: after a profiler session the process's later
+# launches of small eager ops ran slower (PERF.md, PR 3)
+PROFILE = []
 CACHE = os.path.join(ROOT, ".bench")
 W, H, QP, FRAMES = 1920, 1080, 30, 4
 STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_{FRAMES}f.265")
+# the bound's rates (NVIDIA H100 SXM data sheet): device memory, and int32
+# operations outside the tensor cores — an SM has 64 int32 lanes against
+# 128 fp32 ones, so half the 67 TFLOP/s of fp32, a multiply-add counting 2
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 33.5e12
 
 
 def log(*a):
@@ -62,8 +83,8 @@ def log(*a):
 
 def synth_stream(path, w, h, qp, frames, wpp=True, log2_ctb=6):
     """IPP stream with the settings of bench.py's _synth_stream."""
-    from hevc_tpu.encoder.core import EncoderConfig, IntraEncoder
-    from hevc_tpu.encoder.generate import synth_frame
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
     enc = IntraEncoder(EncoderConfig(
         width=w, height=h, qp=qp, log2_ctb_size=log2_ctb,
         log2_cu_size=log2_ctb, deblocking=True, sao=True, seed=1,
@@ -98,7 +119,7 @@ MC_CASES = [  # is_ch, bi, w, h, bd, wp
 def random_mc_case(rng, is_ch, bi, w, h, bd, wp, n_blk=7):
     """(canvas, refs, rows [N, 17]) with non-overlapping blocks plus two
     padding rows (cy = cx = 30000) that must write nothing."""
-    from hevc_tpu.tpu.pack import PAD_REF
+    from hevc_tpu_torch.pack import PAD_REF
     rh, rw, ch, cw, nref = 96, 160, 160, 260, 2
     ntaps = 4 if is_ch else 8
     refs = rng.integers(0, (1 << bd) - 1, (nref, rh + 2 * PAD_REF,
@@ -147,9 +168,29 @@ def random_resid_case(rng, cls, bd, n_blk=6):
 # phases
 # ---------------------------------------------------------------------------
 
+def mixed_mc_case(rng, bd=8):
+    """(canvas, refs, groups): two rows of every 8-bit MC flavour, each
+    flavour in its own band of rows, one at the canvas's right edge, plus
+    a padding row each: one picture's mixed groups for one launch."""
+    from hevc_tpu_torch.pack import PAD_REF
+    rh, rw, ch, cw, nref = 96, 160, 300, 260, 2
+    refs = rng.integers(0, (1 << bd) - 1, (nref, rh + 2 * PAD_REF,
+                                           rw + 2 * PAD_REF)).astype(np.int32)
+    groups = []
+    for k, (is_ch, bi, w, h, _bd, wp) in enumerate(
+            c for c in MC_CASES if c[4] == bd):
+        _c, _r, rows = random_mc_case(rng, is_ch, bi, w, h, bd, wp, n_blk=2)
+        rows = rows[:3]                   # two blocks and one padding row
+        rows[0, 10:12] = (8 + 36 * k, 8)
+        rows[1, 10:12] = (8 + 36 * k, cw - w + 2)
+        groups.append((is_ch, bi, wp, 3, w, h, rows))
+    canvas = rng.integers(0, 1 << bd, (ch, cw)).astype(np.int32)
+    return canvas, refs, groups
+
+
 def phase_random_kernels(dev):
     import torch
-    from hevc_tpu_torch import mc_cuda
+    from hevc_tpu_torch import build, mc_cuda
     from hevc_tpu_torch.mc import mc_plain, resid_add_plain
     from hevc_tpu_torch.tables import tables_from_reference
     tabs = tables_from_reference(dev)
@@ -164,23 +205,39 @@ def phase_random_kernels(dev):
         err = int((got - want).abs().max())
         assert err == 0, f"mc_kernel != plain on {is_ch, bi, w, h, bd, wp}"
         assert torch.equal(got[-60:], c[-60:]), "padding rows wrote pixels"
-    for cls in range(4):
-        for bd in (8, 10):
-            canvas, pool, rows = random_resid_case(rng, cls, bd)
-            c = torch.from_numpy(canvas).to(dev)
+    canvas, refs, groups = mixed_mc_case(rng)
+    c = torch.from_numpy(canvas).to(dev)
+    r = torch.from_numpy(refs).to(dev)
+    tgroups = [g[:6] + (torch.from_numpy(g[6]).to(dev),) for g in groups]
+    before = build.launches["mc"]
+    got = mc_cuda.mc(c.clone(), r, r, tgroups, 8)
+    assert build.launches["mc"] == before + 1, "mixed groups: one launch"
+    want = mc_plain(c.clone(), r, r, tgroups, 8, tabs)
+    assert torch.equal(got, want), "mc_kernel != plain on mixed groups"
+    for bd in (8, 10):
+        cases = [random_resid_case(rng, cls, bd) for cls in range(4)]
+        for cls in range(5):      # each class alone, then all four at once
+            c = torch.from_numpy(cases[0][0]).to(dev)
             pools = [torch.zeros((1, 4 << k, 4 << k), dtype=torch.int32,
                                  device=dev) for k in range(4)]
-            pools[cls] = torch.from_numpy(pool).to(dev)
             fields = [torch.zeros((0, 3), dtype=torch.int32, device=dev)
                       for _ in range(4)]
-            fields[cls] = torch.from_numpy(rows).to(dev)
+            for k in (range(4) if cls == 4 else (cls,)):
+                pools[k] = torch.from_numpy(cases[k][1]).to(dev)
+                rows = cases[k][2].copy()
+                if cls == 4:   # the classes in disjoint bands of rows
+                    rows[:-1, 0] += (0, 16, 40, 72)[k]
+                fields[k] = torch.from_numpy(rows).to(dev)
+            before = build.launches["resid_add"]
             got = mc_cuda.resid_add(c.clone(), fields, pools, bd)
+            assert build.launches["resid_add"] == before + 1
             want = resid_add_plain(c.clone(), fields, pools, bd)
             err = int((got - want).abs().max())
             assert err == 0, f"resid_add_kernel != plain on class {cls}"
     torch.cuda.synchronize()
-    log(f"random kernel cases: {len(MC_CASES)} MC flavours and 4x2 residual "
-        "classes bit-exact")
+    log(f"random kernel cases: {len(MC_CASES)} MC flavours, their mixed "
+        "groups in one launch, and 4 residual classes alone and together "
+        "at 8 and 10 bit, bit-exact")
 
 
 class Capture:
@@ -216,7 +273,7 @@ class Capture:
 
         def mc(canvas, refs_l, refs_c, groups, bd):
             self.mc.append((canvas.clone(), refs_l.clone(), refs_c.clone(),
-                            [g[:6] + (g[6].clone(),) for g in groups], bd))
+                            [g[:6] + (np.array(g[6]),) for g in groups], bd))
             return mc_t(canvas, refs_l, refs_c, groups, bd)
 
         def resid_add(canvas, fields, pools, bd):
@@ -239,26 +296,98 @@ class Capture:
                          for k, v in self.ms.items())
 
 
+def bound_ms(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time of the card for the
+    bytes at HBM_BYTES_S and the int32 operations at INT32_OPS_S."""
+    tb, to = n_bytes / HBM_BYTES_S * 1e3, n_ops / INT32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def mc_work(refs_l, refs_c, table):
+    """(bytes, int32 operations) the picture's MC needs: every reference
+    pixel some prediction reads, once (a full-pel axis reads no filter
+    margin), the int16 row table, and each predicted pixel written once; the
+    separable filter's multiply-adds (2 operations each, none on a
+    full-pel axis) and about 4 operations a pixel to round, weight and
+    clip."""
+    import torch
+    dev = refs_l.device
+    seen = {False: torch.zeros(refs_l.shape, dtype=torch.bool, device=dev),
+            True: torch.zeros(refs_c.shape, dtype=torch.bool, device=dev)}
+    ops, px = 0, 0
+    for is_ch, bi, _wp, w, h, start, n in table.groups:
+        nt = 4 if is_ch else 8
+        refs = refs_c if is_ch else refs_l
+        nr, hp, wp = refs.shape
+        rows = torch.from_numpy(table.rows[start:start + n]).to(dev).long()
+        px += n * w * h
+        for o in ((0, 5) if bi else (0,)):
+            sel = rows[:, o].clamp(0, nr - 1)
+            by = rows[:, o + 1].clamp(0, hp - (h + nt - 1))
+            bx = rows[:, o + 2].clamp(0, wp - (w + nt - 1))
+            fx, fy = rows[:, o + 3] != 0, rows[:, o + 4] != 0
+            c = nt // 2 - 1          # the unit tap's column
+            ys = torch.arange(h + nt - 1, device=dev)
+            xs = torch.arange(w + nt - 1, device=dev)
+            need_y = fy[:, None] | ((ys >= c) & (ys < c + h))[None]
+            need_x = fx[:, None] | ((xs >= c) & (xs < c + w))[None]
+            mask = need_y[:, :, None] & need_x[:, None, :]
+            yy = (by[:, None, None] + ys[None, :, None]).expand_as(mask)
+            xx = (bx[:, None, None] + xs[None, None, :]).expand_as(mask)
+            ss = sel[:, None, None].expand_as(mask)
+            seen[bool(is_ch)][ss[mask], yy[mask], xx[mask]] = True
+            nfx, nfy = int(fx.sum()), int(fy.sum())
+            ops += 2 * nt * w * (nfx * (h + nt - 1) + nfy * h)
+        ops += 4 * n * w * h
+    n_bytes = 4 * (int(seen[False].sum()) + int(seen[True].sum()) + px) \
+        + table.rows.nbytes
+    return n_bytes, ops
+
+
+def resid_work(fields, pools):
+    """(bytes, int32 operations) of the residual add: each TU's canvas
+    tile read and written, each residual block it uses read once, the row
+    tables; an add and a clip (3 operations) a pixel."""
+    n_bytes, ops = 0, 0
+    for c, f in enumerate(fields):
+        s = 4 << c
+        n = int(f.shape[0])
+        slots = f[:, 2].clamp(0, pools[c].shape[0] - 1).unique().numel() \
+            if n else 0
+        n_bytes += 8 * n * s * s + 4 * slots * s * s + 12 * n
+        ops += 3 * n * s * s
+    return n_bytes, ops
+
+
 def phase_real_kernels(cap, dev):
-    """Kernel vs plain on the largest captured 1080p row sets; times."""
+    """Kernel vs plain on the largest captured 1080p row sets; times and
+    bounds."""
     import torch
     from hevc_tpu_torch import mc_cuda
     from hevc_tpu_torch.mc import mc_plain, resid_add_plain
     from hevc_tpu_torch.tables import tables_from_reference
-    tabs = tables_from_reference(dev)
     assert cap.mc and cap.resid, "the captured decode ran no inter frame"
     canvas, refs_l, refs_c, groups, bd = max(
         cap.mc, key=lambda a: sum(g[6].shape[0] for g in a[3]))
-    n_mc = sum(g[6].shape[0] for g in groups)
+    table = mc_cuda.mc_table(groups, canvas.shape)
+    n_mc = table.rows.shape[0]
+    rows = torch.from_numpy(table.rows).to(dev)
+    tg = mc_cuda.table_groups(table, rows.int())
+    tabs = tables_from_reference(dev)
     got = mc_cuda.mc(canvas.clone(), refs_l, refs_c, groups, bd)
-    want = mc_plain(canvas.clone(), refs_l, refs_c, groups, bd, tabs)
+    want = mc_plain(canvas.clone(), refs_l, refs_c, tg, bd, tabs)
     mc_err = int((got - want).abs().max())
     assert mc_err == 0, "mc_kernel != plain on the 1080p P frame"
     work = canvas.clone()
-    rows = mc_cuda.mc_rows(groups, dev)
-    mc_ms = cuda_ms(lambda: mc_cuda.launch_mc(work, refs_l, refs_c, rows, bd))
+    params = mc_cuda.mc_params(work, refs_l, refs_c, table, bd)
+
+    def launch_mc():
+        mc_cuda.launch_mc(work, refs_l, refs_c, rows, params)
+
+    mc_ms = cuda_ms(launch_mc)
+    PROFILE.append(("mc_kernel", launch_mc))
     mc_call_ms = cuda_ms(lambda: mc_cuda.mc(work, refs_l, refs_c, groups, bd))
-    mc_plain_ms = cuda_ms(lambda: mc_plain(work, refs_l, refs_c, groups, bd,
+    mc_plain_ms = cuda_ms(lambda: mc_plain(work, refs_l, refs_c, tg, bd,
                                            tabs), iters=5, warmup=1)
 
     canvas, fields, pools, bd = max(
@@ -269,40 +398,38 @@ def phase_real_kernels(cap, dev):
     ra_err = int((got - want).abs().max())
     assert ra_err == 0, "resid_add_kernel != plain on the 1080p P frame"
     work = canvas.clone()
+    rparams = mc_cuda.resid_params(work, fields, pools, bd)
 
-    def all_classes():
-        for c, f in enumerate(fields):
-            mc_cuda.launch_resid_add(work, f, pools[c], bd)
+    def launch_ra():
+        mc_cuda.launch_resid_add(work, rparams)
 
-    ra_ms = cuda_ms(all_classes)
+    ra_ms = cuda_ms(launch_ra)
+    PROFILE.append(("resid_add_kernel", launch_ra))
     ra_call_ms = cuda_ms(lambda: mc_cuda.resid_add(work, fields, pools, bd))
     ra_plain_ms = cuda_ms(lambda: resid_add_plain(work, fields, pools, bd),
                           iters=5, warmup=1)
-    log(f"1080p P frame: {n_mc} MC rows in {len(groups)} groups, "
-        f"inter TUs per class {n_tu}; kernels bit-exact")
-    # bytes the kernels must move: each prediction's (h+t-1)(w+t-1)
-    # window read once, the block written once; residual add reads the
-    # canvas tile and the residual block and writes the tile (int32)
-    mc_bytes = sum(g[6].shape[0] * 4 * (
-        (2 if g[1] else 1) * (g[5] + (3 if g[0] else 7))
-        * (g[4] + (3 if g[0] else 7)) + g[4] * g[5]) for g in groups)
-    ra_bytes = sum(int(f.shape[0]) * 12 * (4 << c) ** 2
-                   for c, f in enumerate(fields))
-    log(f"bytes: mc {mc_bytes} ({mc_bytes / mc_ms / 1e6} GB/s), resid_add "
-        f"{ra_bytes} ({ra_bytes / ra_ms / 1e6} GB/s)")
+    log(f"1080p P frame: {n_mc} MC rows in {len(table.groups)} block "
+        f"classes ({params.unit_start[params.ngroups]} work units), inter "
+        f"TUs per class {n_tu}; kernels bit-exact")
+    mc_b, mc_ops = mc_work(refs_l, refs_c, table)
+    ra_b, ra_ops = resid_work(fields, pools)
+    log(f"work: mc {mc_b} B, {mc_ops} int32 ops ({mc_b / mc_ms / 1e6} GB/s);"
+        f" resid_add {ra_b} B, {ra_ops} ops ({ra_b / ra_ms / 1e6} GB/s)")
     log(f"ms per call (CUDA events): mc launch {mc_ms}, mc wrapper "
-        f"{mc_call_ms}, plain {mc_plain_ms}; resid_add launches {ra_ms}, "
-        f"wrapper {ra_call_ms}, plain {ra_plain_ms}")
-    return {"mc": (mc_err, mc_ms, mc_plain_ms),
-            "resid_add": (ra_err, ra_ms, ra_plain_ms)}
+        f"{mc_call_ms} (table, upload, launch), plain {mc_plain_ms}; "
+        f"resid_add launch {ra_ms}, wrapper "
+        f"{ra_call_ms}, plain {ra_plain_ms}")
+    return {"mc": (mc_err, mc_ms, mc_plain_ms, bound_ms(mc_b, mc_ops)),
+            "resid_add": (ra_err, ra_ms, ra_plain_ms,
+                          bound_ms(ra_b, ra_ops))}
 
 
 def phase_small_reference(dev):
-    """A 96x80 IPP/WPP stream: port on the card == inline NumPy decoder."""
+    """A 96x80 IPP/WPP stream: port on the card == the port's inline NumPy
+    decoder."""
     import tempfile
 
-    from hevc_tpu.decoder.core import Decoder
-    from hevc_tpu_torch.decoder import TorchDecoder
+    from hevc_tpu_torch.decoder import Decoder, TorchDecoder
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "small.265")
         synth_stream(path, 96, 80, 30, 3, log2_ctb=5)
@@ -320,10 +447,11 @@ def phase_small_reference(dev):
 
 def phase_cabac(data, dev):
     """The CABAC path on the 1080p stream's substreams and on random rows;
-    returns (launches, max_abs_err, ms, plain_ms) with both times on the
-    R = 132 set."""
+    returns (launches, max_abs_err, ms, plain_ms, bound) with both times
+    and the bound on the R = 132 set."""
     import torch
-    from hevc_tpu_torch import build, cabac, cabac_cuda
+    from hevc_tpu_torch import build, cabac_cuda
+    from hevc_tpu_torch.cabac import rows as cabac
     t0 = time.perf_counter()
     real = cabac.capture_substreams(data)
     n_real = sum(len(r.sched) for r in real)
@@ -372,8 +500,14 @@ def phase_cabac(data, dev):
     data_t, sched, init, _ = packed["R=132"]
     plain_ms = cuda_ms(lambda: cabac.decode_rows_plain(data_t, sched, init),
                        iters=2, warmup=1)
+    PROFILE.append(("cabac_kernel", lambda: cabac_cuda.launch_cabac(
+        data_t, sched, init, sched.shape[1])))
     log(f"cabac R=132: plain {plain_ms} ms (CUDA events)")
-    return launches, err, ms["R=132"], plain_ms
+    # bytes: data, schedule and initial states read once, bins written
+    # once; operations: about 16 int32 operations a bin step
+    n_bytes = 4 * (data_t.numel() + 2 * sched.numel() + init.numel())
+    return launches, err, ms["R=132"], plain_ms, bound_ms(
+        n_bytes, 16 * sched.numel())
 
 
 # what the card answers: a window at an unaligned inner offset (x = 37
@@ -389,7 +523,7 @@ WINDOW_OUTCOMES = {
 
 def phase_probes(dev):
     """The probe path; returns {kernel: (launches, max_abs_err, ms,
-    plain_ms)}."""
+    plain_ms, library_ms, bound)}."""
     import torch
     from hevc_tpu_torch import build, probes
     build.reset_launches()
@@ -406,9 +540,58 @@ def phase_probes(dev):
         f"us/block, {probes.PIPE_BYTES / ms / 1e6} GB/s "
         f"({probes.PIPE_BYTES} B); plain index copy {plain_ms} ms")
     log(f"probe times, ms (kernel, plain): {times}; launch counts {counts}")
+
+    # one PyTorch call for the same function on the same inputs, and the
+    # kernels' launches to trace with the profiler at the end
+    tile = torch.arange(probes.TILE[0] * probes.TILE[1], dtype=torch.int32,
+                        device=dev).reshape(probes.TILE)
+    shift = torch.tensor(probes.SHIFT, dtype=torch.int32, device=dev)
+    plane = torch.arange(probes.PLANE[0] * probes.PLANE[1],
+                         dtype=torch.int32, device=dev).reshape(probes.PLANE)
+    case = probes.WINDOW_CASES[1]
+    (wh, ww), (oy, ox) = case.shape, case.origin
+    x = torch.arange(probes.PIPE_PLANE[0] * probes.PIPE_PLANE[1],
+                     dtype=torch.int32, device=dev).reshape(probes.PIPE_PLANE)
+    org = probes.pipe_origins().to(dev)
+    o = org.long()
+    bh, bw = probes.PIPE_BOX
+    ys = (o[:, 0, None] + torch.arange(bh, device=dev))[:, :, None]
+    xs = (o[:, 1, None] + torch.arange(bw, device=dev))[:, None, :]
+    out = torch.zeros_like(x)
+
+    def index_copy():
+        out[ys, xs] = x[ys, xs]
+
+    library = {
+        "tile_shift": cuda_ms(lambda: torch.roll(tile, probes.SHIFT, (0, 1))),
+        "tma_window": cuda_ms(
+            lambda: plane[oy:oy + wh, ox:ox + ww].clone()),
+        "tma_pipe": cuda_ms(index_copy, iters=5)}
+    pout = torch.zeros_like(x)
+    PROFILE.extend([
+        ("tile_shift_kernel",
+         lambda: probes.tile_shift(tile, shift, probes.ROLL)),
+        ("tma_window_kernel",
+         lambda: probes.tma_window(plane, case.shape, case.origin, False)),
+        ("tma_pipe_kernel", lambda: probes.launch_tma_pipe(x, org, pout))])
+    log(f"probe library calls, ms (CUDA events): {library}")
+    # bytes each function must move: its input read once, its output
+    # written once (the pipe's PIPE_BYTES count both, plus the origins)
+    work = {"tile_shift": 2 * tile.numel() * 4,
+            "tma_window": 2 * wh * ww * 4,
+            "tma_pipe": probes.PIPE_BYTES + org.numel() * 4}
     errs = {"tile_shift": max(res["tile_shift"].values()),
             "tma_window": res["tma_window_err"], "tma_pipe": res["tma_pipe"]}
-    return {k: (counts[k], errs[k]) + times[k] for k in counts}
+    return {k: (counts[k], errs[k]) + times[k]
+            + (library[k], bound_ms(work[k], 0)) for k in counts}
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+               library_ms, bound):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def main():
@@ -423,10 +606,10 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    from hevc_tpu import native, trace
-    from hevc_tpu_torch import build, cli, decoder
+    from hevc_tpu_torch import build, cli, decoder, native, pipeline, trace
     dev = torch.device("cuda", 0)
     assert native.available(), "native stage A failed to build"
+    log(f"native stage A: {os.path.relpath(native._SO, ROOT)}")
     t0 = time.perf_counter()
     build.build(verbose=True)
     build.load()
@@ -462,18 +645,21 @@ def main():
             decode_all()
     finally:
         os.environ.pop("HEVC_TPU_ASYNC_PACK")
-    real = phase_real_kernels(cap, dev)
 
-    # the counted run: the CLI entry point, launch counts from zero
+    # the counted run: the CLI entry point, launch counts from zero; before
+    # any torch.profiler session (after one, this run was 15-25% slower)
     seen = []
-    orig_finish = decoder.finish_frame
+    orig_finish = pipeline.finish_frame
 
     def finish(pic, lay, poc, device):
+        inter = bool(getattr(pic, "ref_list_l0", None)
+                     or getattr(pic, "ref_list_l1", None))
         out = orig_finish(pic, lay, poc, device)
-        seen.append((out[0].device.type, lay.dpb_dev[poc][0].device.type))
+        seen.append((out[0].device.type, lay.dpb_dev[poc][0].device.type,
+                     inter))
         return out
 
-    decoder.finish_frame = finish
+    pipeline.finish_frame = finish
     trace.reset()
     build.reset_launches()
     buf = io.StringIO()
@@ -482,52 +668,55 @@ def main():
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["-i", STREAM, "-v", "40", "--device", "cuda"])
     finally:
-        decoder.finish_frame = orig_finish
+        pipeline.finish_frame = orig_finish
     wall = time.perf_counter() - t0
     counts = {k: build.launches[k] for k in ("mc", "resid_add")}
     split = trace.report()
     out = buf.getvalue()
     log(out.strip())
+    n_inter = sum(s[2] for s in seen)
     assert rc == 0, f"cli.main returned {rc}"
     assert out.count("Correct MD5") == FRAMES, "not every frame's MD5 ok"
-    assert counts["mc"] > 0 and counts["resid_add"] > 0, counts
-    assert len(seen) == FRAMES and all(d == ("cuda", "cuda") for d in seen), \
+    assert n_inter == FRAMES - 1, f"{n_inter} inter pictures"
+    assert counts["mc"] == n_inter and 0 < counts["resid_add"] <= n_inter, \
+        f"launches {counts} for {n_inter} inter pictures"
+    assert len(seen) == FRAMES and all(d[:2] == ("cuda", "cuda")
+                                       for d in seen), \
         f"outputs not on the card: {seen}"
-    assert "jax" not in sys.modules, "the port imported jax"
 
     log(f"1080p decode via cli.main: {FRAMES / wall} fps wall "
         f"(incl. MD5 fetch), {out.strip().splitlines()[-1]}")
     log("trace split of the counted run, ms/frame: " + ", ".join(
-        f"{k} {v['total_s'] * 1e3 / FRAMES}" for k, v in sorted(split.items())))
+        f"{k} {v['total_s'] * 1e3 / FRAMES}"
+        for k, v in sorted(split.items())))
     log(f"inline decode, stages synchronised, ms per call: {cap.report()}")
     log(f"launch counts of the counted run: {counts}")
 
+    real = phase_real_kernels(cap, dev)
     kernels = []
     for name, line in (("mc", 161), ("resid_add", 356)):
-        err, ms, plain_ms = real[name]
-        kernels.append({
-            "name": f"{name}_kernel", "route": "cuda",
-            "source": "hevc_tpu_torch/csrc/mc.cu",
-            "replaces": f"hevc_tpu/tpu/mc_pallas.py:{line}",
-            "launches": counts[name], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms})
-
-    n, err, ms, plain_ms = phase_cabac(data, dev)
-    kernels.append({
-        "name": "cabac_kernel", "route": "cuda",
-        "source": "hevc_tpu_torch/csrc/cabac.cu",
-        "replaces": "hevc_tpu/tpu/cabac_pallas.py:49", "launches": n,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    for name, (n, err, ms, plain_ms) in phase_probes(dev).items():
-        kernels.append({
-            "name": f"{name}_kernel", "route": "cuda",
-            "source": "hevc_tpu_torch/csrc/probes.cu",
-            "replaces": {"tile_shift": "tools/probe_roll.py:34",
-                         "tma_window": "tools/probe_dma.py:18",
-                         "tma_pipe": "tools/probe_roll.py:79"}[name],
-            "launches": n, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
-    assert "jax" not in sys.modules, "the port imported jax"
+        err, ms, plain_ms, bound = real[name]
+        kernels.append(kernel_row(
+            f"{name}_kernel", "hevc_tpu_torch/csrc/mc.cu",
+            f"hevc_tpu/tpu/mc_pallas.py:{line}", counts[name], err, ms,
+            plain_ms, None, bound))
+    n, err, ms, plain_ms, bound = phase_cabac(data, dev)
+    kernels.append(kernel_row(
+        "cabac_kernel", "hevc_tpu_torch/csrc/cabac.cu",
+        "hevc_tpu/tpu/cabac_pallas.py:49", n, err, ms, plain_ms, None,
+        bound))
+    for name, row in phase_probes(dev).items():
+        kernels.append(kernel_row(
+            f"{name}_kernel", "hevc_tpu_torch/csrc/probes.cu",
+            {"tile_shift": "tools/probe_roll.py:34",
+             "tma_window": "tools/probe_dma.py:18",
+             "tma_pipe": "tools/probe_roll.py:79"}[name], *row))
+    device = {name: profiler_ms(fn, name, iters=5) for name, fn in PROFILE}
+    log(f"device ms per launch (torch.profiler, after every other phase): "
+        f"{device}")
+    blocked = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "hevc_tpu"))
+    assert not blocked, f"the port imported {blocked}"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

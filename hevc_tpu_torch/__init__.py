@@ -1,17 +1,21 @@
-"""hevc_tpu_torch — the decoder's stage B on PyTorch and CUDA.
+"""hevc_tpu_torch — the HEVC decoder with its stage B on PyTorch and CUDA.
 
-A port of ``hevc_tpu``'s device path (``hevc_tpu/tpu``) to PyTorch, with
-the two inter kernels of the frame program (motion compensation and the
-inter residual add) written by hand in CUDA C++ for Hopper (``csrc/``).
-The bitstream, CABAC and syntax layers, the native C++ stage A and the
-host pack helpers are imported from ``hevc_tpu``, which stays the
-bit-exact reference.  This package never imports JAX.
+A port of ``hevc_tpu`` to PyTorch that imports nothing of it and never
+imports JAX.  The host side is a copy of ``hevc_tpu``'s, at the same
+paths (``bitstream/``, ``cabac/``, ``coding/``, ``ops/``, ``io/``,
+``encoder/``, ``log``, ``trace``, and ``native/`` with its C++ stage A,
+built with ``g++`` into ``build/``).  ``decoder/core.py`` is the stream
+decoder with the port's stage B behind ``recon_backend="torch"``: the
+host pack (``pack.py``) and the frame program (``pipeline.py``) on a
+torch device, the two inter kernels of which (motion compensation and
+the inter residual add) are written by hand in CUDA C++ for Hopper
+(``csrc/``).  ``hevc_tpu`` stays the bit-exact reference.
 
-Entry points: ``TorchDecoder`` (``decoder.py``) and
-``python -m hevc_tpu_torch.cli``.  Beside the decoder, ``cabac.py`` ports
-the on-device CABAC engine (``hevc_tpu/tpu/cabac_pallas.py``) and
-``probes.py`` the Mosaic probes of ``tools/``, each with its Hopper kernel
-in ``csrc/``.
+Entry points: ``TorchDecoder`` (``Decoder(recon_backend="torch")``) and
+``python -m hevc_tpu_torch.cli``.  Beside the decoder, ``cabac/rows.py``
+ports the on-device CABAC engine (``hevc_tpu/tpu/cabac_pallas.py``;
+``python -m hevc_tpu_torch.cabac.rows``) and ``probes.py`` the Mosaic
+probes of ``tools/``, each with its Hopper kernel in ``csrc/``.
 """
 from .device import resolve_device
 

@@ -95,11 +95,10 @@ def load() -> C.CDLL:
         if _lib is None:
             lib = C.CDLL(build())
             p, i = C.c_void_p, C.c_int
-            lib.hevc_mc_launch.argtypes = [p, i, i, p, i, i, i, p, i, i, i,
-                                           p, i, p, p, i, p]
+            # the parameter structs go by pointer (ctypes.byref)
+            lib.hevc_mc_launch.argtypes = [p, p, p, p, p, p]
             lib.hevc_mc_launch.restype = i
-            lib.hevc_resid_add_launch.argtypes = [p, i, i, p, i, p, i, i, i,
-                                                  p]
+            lib.hevc_resid_add_launch.argtypes = [p, p, p]
             lib.hevc_resid_add_launch.restype = i
             lib.hevc_cabac_launch.argtypes = [p, i, p, i, i, p, i, p, i, p,
                                               p]

@@ -10,7 +10,7 @@ its schedule of bin kinds (>= 0 context slot, ``BYPASS``, ``TERMINATE``).
 Hopper kernel of ``csrc/cabac.cu`` (``cabac_cuda.py``), on a CPU tensor
 through ``decode_rows_plain``.
 
-    python -m hevc_tpu_torch.cabac [--device cuda]
+    python -m hevc_tpu_torch.cabac.rows [--device cuda]
 
 decodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024), holds the
 kernel against the plain version and the encoder's bins, and prints
@@ -27,18 +27,17 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from hevc_tpu.cabac.ctx import ContextModel
-from hevc_tpu.cabac.engine import (RANGE_TAB_LPS, TRANS_IDX_LPS,
-                                   TRANS_IDX_MPS, CabacDecoder, CabacEncoder)
-
-from .device import cuda_ms, resolve_device
+from ..device import cuda_ms, resolve_device
+from .ctx import ContextModel
+from .engine import (RANGE_TAB_LPS, TRANS_IDX_LPS, TRANS_IDX_MPS,
+                     CabacDecoder, CabacEncoder)
 
 BYPASS = -1
 TERMINATE = -2
 N_CTX = len(ContextModel(0, 26).states)
-# the random row sets of python -m hevc_tpu_torch.cabac and chip_smoke.py:
-# tools/probe_cabac_pallas.py's 4,096 bins at R = 1 and 8, one row per SM
-# (132) and 1,024
+# the random row sets of python -m hevc_tpu_torch.cabac.rows and
+# chip_smoke.py: tools/probe_cabac_pallas.py's 4,096 bins at R = 1 and 8,
+# one row per SM (132) and 1,024
 N_BINS = 4096
 ROWS = (1, 8, 132, 1024)
 
@@ -58,7 +57,7 @@ class Row(NamedTuple):
 @lru_cache(maxsize=None)
 def cabac_tables(device: torch.device) -> torch.Tensor:
     """int32 [384]: rangeTabLps [64][4], then transIdxLps [64], then
-    transIdxMps [64] (Tables 9-46 and 9-47 of ``hevc_tpu.cabac.engine``)."""
+    transIdxMps [64] (Tables 9-46 and 9-47 of ``cabac/engine.py``)."""
     t = np.concatenate([np.asarray(RANGE_TAB_LPS, np.int32).ravel(),
                         np.asarray(TRANS_IDX_LPS, np.int32),
                         np.asarray(TRANS_IDX_MPS, np.int32)])
@@ -217,7 +216,7 @@ def decode_rows(data, sched, init, n_bins=None):
     ``decode_rows_plain``."""
     if data.device.type == "cpu":
         return decode_rows_plain(data, sched, init, n_bins)
-    from . import cabac_cuda
+    from .. import cabac_cuda
     n = check_rows(data, sched, init, n_bins)
     return cabac_cuda.launch_cabac(data.contiguous(), sched.contiguous(),
                                    init.contiguous(), n)
@@ -228,20 +227,20 @@ def decode_rows(data, sched, init, n_bins=None):
 # ---------------------------------------------------------------------------
 
 def capture_substreams(stream: bytes) -> List[Row]:
-    """Decode ``stream`` with the JAX package's Python syntax layer and
-    record every arithmetic engine it opens (one per slice segment, WPP
-    row or tile), in the order they were opened: the bytes from the
+    """Decode ``stream`` with the Python syntax layer (``decoder/core.py``)
+    and record every arithmetic engine it opens (one per slice segment,
+    WPP row or tile), in the order they were opened: the bytes from the
     engine's start to its cursor after its last bin, its context states
     at its first context-coded bin, its schedule and the bins it decoded.
     Engines that decode no bin are left out.
 
-    ``hevc_tpu.decoder.core`` is patched for the decode and restored
+    ``hevc_tpu_torch.decoder.core`` is patched for the decode and restored
     after it, also on failure: its ``CabacDecoder`` becomes a recording
     subclass, and the native slice and residual decoders are switched
     off, since both decode bins past the Python engine.  Raises on PCM
     (it leaves the arithmetic engine), on a row whose context bins use
     two state lists, and unless every frame's MD5 matches."""
-    from hevc_tpu.decoder import core
+    from ..decoder import core
     engines = []
 
     class Recording(CabacDecoder):
@@ -299,19 +298,19 @@ def capture_substreams(stream: bytes) -> List[Row]:
 
 
 # ---------------------------------------------------------------------------
-# python -m hevc_tpu_torch.cabac
+# python -m hevc_tpu_torch.cabac.rows
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m hevc_tpu_torch.cabac")
+    ap = argparse.ArgumentParser(prog="python -m hevc_tpu_torch.cabac.rows")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda":
-        print("python -m hevc_tpu_torch.cabac times the kernel and needs "
+        print("python -m hevc_tpu_torch.cabac.rows times the kernel and needs "
               "--device cuda", file=sys.stderr)
         return 2
-    from . import cabac_cuda
+    from .. import cabac_cuda
     t0 = time.perf_counter()
     rows = random_rows(np.random.default_rng(5), max(ROWS), N_BINS,
                        init_types=(0, 1, 2))

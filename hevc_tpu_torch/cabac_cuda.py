@@ -1,21 +1,22 @@
 """Wrapper of the Hopper CABAC kernel in ``csrc/cabac.cu``.
 
-``cabac.decode_rows`` calls it for CUDA tensors, after ``cabac.check_rows``
-has checked them; CPU tensors take the plain version there.  Each launch
-adds one to ``build.launches["cabac"]``; nothing else touches the count.
+``cabac.rows.decode_rows`` calls it for CUDA tensors, after
+``cabac.rows.check_rows`` has checked them; CPU tensors take the plain
+version there.  Each launch adds one to ``build.launches["cabac"]``;
+nothing else touches the count.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .cabac import cabac_tables
+from .cabac.rows import cabac_tables
 
 
 def launch_cabac(data, sched, init, n_bins):
     """Launch ``cabac_kernel`` once: R rows of the first ``n_bins`` bins of
     ``sched``.  int32 data [R, n_bytes], sched [R, >= n_bins], init
-    [R, n_ctx] on one card, as ``cabac.check_rows`` accepts them, and
+    [R, n_ctx] on one card, as ``cabac.rows.check_rows`` accepts them, and
     contiguous; returns bins int32 [R, n_bins]."""
     for name, t in (("data", data), ("sched", sched), ("init", init)):
         if not t.is_contiguous():

@@ -34,9 +34,8 @@ def main(argv=None):
                          "the plain PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
 
-    from hevc_tpu.io import open_input
-
     from .decoder import TorchDecoder
+    from .io import open_input
 
     data = open_input(args.input)
     t0 = time.time()

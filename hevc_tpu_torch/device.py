@@ -27,6 +27,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def profiler_ms(fn, name: str, iters: int = 20, warmup: int = 3):
+    """Mean device time in ms of the kernels whose name contains ``name``
+    per call of fn(), over ``iters`` calls traced by ``torch.profiler``
+    after ``warmup`` calls; None when the trace holds no device time for
+    such a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or 0
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / iters if us > 0 else None
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms over ``iters`` calls, from CUDA
     events on the current stream, after ``warmup`` calls."""

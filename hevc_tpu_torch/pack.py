@@ -8,18 +8,69 @@ and the static ``spec`` tuple — so ``pipeline.frame_program`` takes what
 either pack produces.  It always packs the unaligned layout (``pallas``
 0), uploads the level pool dense, tags every MC row kind 3 and pads no
 row counts: the card needs no static shapes.
+
+The canvas layout (``region_offsets``, the ``PAD``/``TAIL`` margins, the
+``DUMP`` sentinel, ``PAD_REF``) and ``PackedFrame``, the per-frame pack of
+``native.pack_frame_native``, are those of ``hevc_tpu/tpu/pack.py`` at
+e99b487.
 """
 from __future__ import annotations
 
 import ctypes as C
+from dataclasses import dataclass
 
 import numpy as np
 
-from hevc_tpu import native as N
-from hevc_tpu import trace
-from hevc_tpu.tpu.pack import DUMP, PAD_REF, region_offsets
+from . import native as N
+from . import trace
 
+PAD = 8          # top/left margin of each region
+TAIL = 72        # bottom/right slack so 2n-reads never leave the canvas
+DUMP = -(1 << 20)  # scatter target for padding lanes (dropped as OOB)
+PAD_REF = 64  # replication padding of reference planes (bounds the MVs
+              # the packer accepts; generated streams stay well inside)
 DUMP16 = 30000  # int16-safe out-of-canvas sentinel for padding MC rows
+
+
+@dataclass
+class PackedFrame:
+    canvas: np.ndarray            # int32 [CH, CW]
+    scal: tuple                   # per class: int32 [n_chunks, B, 8]
+    avail: tuple                  # per class: bool [n_chunks, B, 128]
+    levels: tuple                 # per class: int32 [Nc, s, s]
+    rmeta: tuple                  # per class: int32 [Nc, 9] (qp, dst,
+                                  # ts, raw, mtx+1, rot, rdpcm, ccp,
+                                  # ccp_slot)
+    n_chunks: int
+    region: dict                  # plane -> (oy, ox, h, w)
+    bit_depth: int
+    # inter phases
+    mc_groups: tuple = ()         # ((is_chroma, bi, w, h, wp, fields), ...)
+                                  # fields int32 [N, 7|12 (+5 when wp)]:
+                                  # pred cols, cy, cx[, w0, o0, w1, o1,
+                                  # log2wd]
+    resid_groups: tuple = ()      # per class int32 [N, 3] = (cy, cx, slot)
+    refs_l: np.ndarray = None     # int32 [R, Hp, Wp] padded luma refs
+    refs_c: np.ndarray = None     # int32 [2R, hp, wp] padded cb+cr refs
+    scale_bank: tuple = ()        # per class: int32 [7, s, s] scaling
+                                  # matrices (0 = flat, 1..6 = matrix id)
+
+
+def region_offsets(sps):
+    h, w = sps.height, sps.width
+    if sps.chroma_format_idc == 0:
+        # monochrome: no chroma records ever target the canvas — park
+        # two dummy 8x8 regions in the top-left pad margin so the
+        # 3-plane plumbing keeps its shape (4:0:0, 7.4.3.2)
+        reg = {0: (PAD, PAD, h, w), 1: (0, 0, 8, 8), 2: (0, 8, 8, 8)}
+        return reg, PAD + h + TAIL, PAD + w + TAIL + PAD
+    h2, w2 = h // sps.sub_h, w // sps.sub_w
+    reg = {0: (PAD, PAD, h, w),
+           1: (PAD + h + PAD, PAD, h2, w2),
+           2: (PAD + h + PAD, PAD + w2 + PAD, h2, w2)}
+    ch = PAD + h + PAD + h2 + TAIL
+    cw = max(PAD + w, PAD + w2 + PAD + w2) + TAIL + PAD
+    return reg, ch, cw
 
 
 def _pow2_at_least(x):

@@ -15,10 +15,10 @@ import threading
 import numpy as np
 import torch
 
-from hevc_tpu import native as N
-from hevc_tpu import trace
-
 from . import mc_cuda
+from . import native as N
+from . import trace
+from .coding.picture import crop_conf_win
 from .filters import deblock, sao_plane
 from .intra import chunk_counts, reconstruct_wavefront
 from .pack import pack_frame
@@ -80,7 +80,6 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     counts = chunk_counts(scal_np)
 
     meta_d = _upload(meta, device)
-    meta16_d = _upload(meta16, device)
     meta8_d = _upload(meta8, device)
     avail_d = _upload(avail_u8, device)
     levels_d = _upload(levels16, device)
@@ -96,10 +95,13 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     scal = [take(n_chunks * S["B"][c] * 8, (n_chunks, S["B"][c], 8))
             for c in range(4)]
     rmeta = [take(S["nlv"][c] * 9, (S["nlv"][c], 9)) for c in range(4)]
+    # MC rows stay on the host: mc_cuda builds the kernel's one row table
+    # from them and uploads it
+    meta16 = np.asarray(meta16)
     pos16 = 0
     mc_groups = []
     for (is_ch, bi, wp, kind, w, h, nrow) in S["mc_groups"]:
-        rows = meta16_d[pos16:pos16 + nrow * 17].view(nrow, 17).to(I32)
+        rows = meta16[pos16:pos16 + nrow * 17].reshape(nrow, 17)
         pos16 += nrow * 17
         mc_groups.append((is_ch, bi, wp, kind, w, h, rows))
     resid_fields = [take(S["resid_rows"][c] * 3, (S["resid_rows"][c], 3))
@@ -225,7 +227,6 @@ class LazyPlanes:
                 if self._dtype is not None:
                     planes = [p.astype(self._dtype) for p in planes]
                 if self._crop is not None:
-                    from hevc_tpu.coding.picture import crop_conf_win
                     planes = crop_conf_win(planes, self._crop)
                 self._np = planes
                 self._dev = None

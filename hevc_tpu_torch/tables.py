@@ -1,8 +1,9 @@
-"""Constant tables and reference planes carried over from the JAX package.
+"""Constant tables and reference planes of the frame program.
 
-Every table is rebuilt from the JAX package's NumPy sources (``hevc_tpu.ops``),
-exactly as ``hevc_tpu/tpu/{mc,transforms,filters,intra}.py`` build theirs,
-so the two packages share one definition of the codec's constants.
+Every table is rebuilt from the NumPy oracles (``ops/``, copies of the JAX
+package's), exactly as ``hevc_tpu/tpu/{mc,transforms,filters,intra}.py``
+build theirs, so the two packages share one definition of the codec's
+constants.
 """
 from __future__ import annotations
 
@@ -11,10 +12,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from hevc_tpu.ops import deblock as D
-from hevc_tpu.ops import mc as M
-from hevc_tpu.ops import reference as R
-from hevc_tpu.tpu.pack import PAD_REF
+from .ops import deblock as D
+from .ops import mc as M
+from .ops import reference as R
+from .pack import PAD_REF
 
 
 def _numpy_tables():

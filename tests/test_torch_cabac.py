@@ -1,4 +1,4 @@
-"""The port's CABAC engine (hevc_tpu_torch/cabac.py) against the JAX
+"""The port's CABAC engine (hevc_tpu_torch/cabac/rows.py) against the JAX
 package's Pallas kernel in interpret mode and against the Python engine's
 bins, bit for bit (tolerance 0): on random encoder rows, on rows of unequal
 length, and on every substream captured from a small WPP IPP stream."""
@@ -8,12 +8,12 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from hevc_tpu.decoder import core  # noqa: E402
 from hevc_tpu.encoder.core import EncoderConfig, IntraEncoder  # noqa: E402
 from hevc_tpu.encoder.generate import synth_frame  # noqa: E402
 from hevc_tpu.tpu.cabac_pallas import (BYPASS, TERMINATE,  # noqa: E402
                                        decode_rows_pallas)
-from hevc_tpu_torch import cabac  # noqa: E402
+from hevc_tpu_torch.cabac import rows as cabac  # noqa: E402
+from hevc_tpu_torch.decoder import core  # noqa: E402
 
 
 def _jax(data, sched, init):

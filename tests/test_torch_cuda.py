@@ -1,18 +1,19 @@
-"""The two CUDA kernels (hevc_tpu_torch/csrc/mc.cu) against their plain
-PyTorch versions on the card, bit for bit, on the parametrisation of
-tests/test_mc_pallas.py plus padding rows.  Needs a card (marker `cuda`);
-skips without one.  This file imports no JAX, so it runs on a machine
-that has only torch:  python -m pytest tests/test_torch_cuda.py
+"""The CUDA kernels (hevc_tpu_torch/csrc/*.cu) against their plain PyTorch
+versions on the card, bit for bit, on the parametrisation of
+tests/test_mc_pallas.py plus padding rows, and one launch each for a
+picture's mixed MC groups and all four residual classes.  Needs a card
+(marker `cuda`); skips without one.  This file imports only the port (no
+JAX, no hevc_tpu), so it runs on a machine that has only torch:
+python -m pytest tests/test_torch_cuda.py
 
 The NumPy case generators here are shared with tests/test_torch_mc.py."""
 import numpy as np
 import pytest
 import torch
 
-from hevc_tpu.tpu.pack import DUMP, PAD_REF
 from hevc_tpu_torch import build, mc_cuda
 from hevc_tpu_torch.mc import mc_plain, resid_add_plain
-from hevc_tpu_torch.pack import DUMP16
+from hevc_tpu_torch.pack import DUMP, DUMP16, PAD_REF
 from hevc_tpu_torch.tables import tables_from_reference
 
 CPU = torch.device("cpu")
@@ -90,6 +91,67 @@ def _resid_case(cls, bd, n_pad=0):
     return canvas, fields, pools
 
 
+def _mixed_mc(rng, bd=8):
+    """(canvas, refs, groups, bd): groups as the JAX pack hands them to
+    ``_mc_tile_phase`` (a kind's fractions are the kind's: 0 full-pel, 1
+    horizontal, 2 vertical) — one block class split over two kinds, luma and
+    chroma, uni and bi, odd chroma widths, padding rows (cy = cx =
+    DUMP16) in every group, and blocks that straddle the canvas edges.
+    Blocks of all groups are pixel-disjoint."""
+    shapes = [  # is_ch, bi, wp, kind, w, h
+        (False, False, False, 1, 16, 16), (False, False, False, 3, 16, 16),
+        (False, True, False, 3, 8, 8), (False, True, True, 0, 32, 24),
+        (False, False, False, 3, 64, 16), (True, False, False, 2, 2, 4),
+        (True, True, False, 3, 6, 16), (True, False, True, 3, 8, 4)]
+    refs = _refs(rng, bd)
+    canvas = rng.integers(0, 1 << bd, (CH, CW)).astype(np.int32)
+    groups, y = [], 0
+    for k, (is_ch, bi, wp, kind, w, h) in enumerate(shapes):
+        rows = _prod_rows(rng, 3, bi, w, h, 4 if is_ch else 8, wp, bd,
+                          fracs=((0, 0), (1, 0), (0, 3), None)[kind])
+        rows[0, 10:12] = (y, -3 if k == 0 else 0)      # left edge
+        rows[1, 10:12] = (y, CW - w + 1)               # right edge
+        rows[2, 10:12] = (CH - h + 2 if k == len(shapes) - 1 else y,
+                          100)                         # bottom edge
+        y += h + 2
+        pad = np.zeros((2, 17), np.int32)
+        pad[:, 10] = pad[:, 11] = DUMP16
+        groups.append((is_ch, bi, wp, kind, w, h,
+                       np.concatenate([rows, pad])))
+    return canvas, refs, groups, bd
+
+
+def _mixed_resid(bd, top_left=False):
+    """(canvas, fields, pools): TUs of all four classes, disjoint, with
+    padding rows (DUMP) in every class and TUs that straddle the canvas
+    edge (read from their clamped origin): a 4x4 two rows past the bottom
+    edge, an 8x8 one row past the bottom and a 16x16 one column past the
+    right edge (the last two read pixels they also write).  ``top_left``
+    adds a 4x4 one row and column before the top-left corner: there JAX's
+    ``.at[]`` wraps the negative indices around (NumPy style) where the
+    port drops them, so only the kernel-vs-plain test takes it."""
+    rng = np.random.default_rng(bd)
+    ch, cw = 160, 220
+    canvas = rng.integers(0, (1 << bd) - 1, (ch, cw),
+                          dtype=np.int64).astype(np.int32)
+    fields, pools, x = [], [], 0
+    for c in range(4):
+        s = 4 << c
+        pool = rng.integers(-200, 200, (5, s, s),
+                            dtype=np.int64).astype(np.int32)
+        pool[0] = 0
+        rows = [(8, x, 1), (8 + s, x, int(rng.integers(0, 5)))]
+        x += s + 4
+        rows += [(DUMP, DUMP, 0)] * 2
+        fields.append(np.asarray(rows, np.int32))
+        pools.append(pool)
+    edge = [(0, (ch - 2, cw - 12, 3)), (1, (ch - 7, 100, 4)),
+            (2, (100, cw - 15, 1))] + ([(0, (-1, -1, 2))] if top_left else [])
+    for c, row in edge:
+        fields[c] = np.concatenate([fields[c], np.asarray([row], np.int32)])
+    return canvas, fields, pools
+
+
 def _port_mc(canvas, refs, groups, bd):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     r = t(refs)
@@ -146,6 +208,53 @@ def test_resid_kernel_matches_plain_on_card(card, cls, bd):
                           _port_resid(canvas, fields, pools, bd))
 
 
+@pytest.mark.cuda
+def test_mc_kernel_one_launch_for_mixed_groups_on_card(card):
+    canvas, refs, groups, bd = _mixed_mc(np.random.default_rng(4))
+    r = torch.from_numpy(refs).to(card)
+    before = build.launches["mc"]
+    got = mc_cuda.mc(torch.from_numpy(canvas).to(card), r, r,
+                     [g[:6] + (torch.from_numpy(g[6]).to(card),)
+                      for g in groups], bd)
+    torch.cuda.synchronize()
+    assert build.launches["mc"] == before + 1
+    assert np.array_equal(got.cpu().numpy(),
+                          _port_mc(canvas, refs, groups, bd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+def test_resid_kernel_one_launch_for_all_classes_on_card(card, bd):
+    canvas, fields, pools = _mixed_resid(bd, top_left=True)
+    t = lambda a: torch.from_numpy(a).to(card)  # noqa: E731
+    before = build.launches["resid_add"]
+    got = mc_cuda.resid_add(t(canvas), [t(f) for f in fields],
+                            [t(p) for p in pools], bd)
+    torch.cuda.synchronize()
+    assert build.launches["resid_add"] == before + 1
+    assert np.array_equal(got.cpu().numpy(),
+                          _port_resid(canvas, fields, pools, bd))
+
+
+@pytest.mark.cuda
+def test_decoder_launches_each_inter_kernel_once_per_picture_on_card(card):
+    """An I, P, P stream through the port's own encoder and decoder: MC
+    launches once per P picture, the residual add at most once."""
+    from hevc_tpu_torch.decoder import TorchDecoder
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=96, height=80, qp=30, gop="ipp", wpp=True, deblocking=True,
+        sao=True, log2_ctb_size=5, log2_cu_size=5, search_range=3, seed=1))
+    data = b"".join(enc.encode_frame(synth_frame("noise", 96, 80, t, seed=3))
+                    for t in range(3))
+    before = dict(build.launches)
+    frames = TorchDecoder(check_md5=True, device=card).decode_bytes(data)
+    assert [f.md5_ok for f in frames] == [True] * 3
+    n = {k: build.launches[k] - before[k] for k in ("mc", "resid_add")}
+    assert n["mc"] == 2 and 1 <= n["resid_add"] <= 2, n
+
+
 # ---------------------------------------------------------------------------
 # the CABAC kernel (csrc/cabac.cu) and the probe kernels (csrc/probes.cu)
 # ---------------------------------------------------------------------------
@@ -153,7 +262,7 @@ def test_resid_kernel_matches_plain_on_card(card, cls, bd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,lengths", [(200, None), (5, (1, 700, 64, 333, 2))])
 def test_cabac_kernel_matches_plain_on_card(card, R, lengths):
-    from hevc_tpu_torch import cabac
+    from hevc_tpu_torch.cabac import rows as cabac
     rng = np.random.default_rng(R)
     if lengths is None:
         rows = cabac.random_rows(rng, R, 300, init_types=(0, 1, 2))

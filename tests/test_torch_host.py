@@ -1,0 +1,100 @@
+"""The port's own host side against the JAX package's.
+
+The port carries copies of the JAX package's host code (bitstream, CABAC,
+syntax, NumPy oracles, native stage A, containers, encoder) and imports
+nothing of it.  Here: no module of hevc_tpu_torch and no line of
+chip_smoke.py imports ``jax`` or ``hevc_tpu``; the port's encoder writes
+the bytes the JAX package's encoder writes; the port's decoder rejects a
+backend it does not have and keeps the seams that raise.
+"""
+import ast
+import os
+
+import numpy as np
+import pytest
+
+from hevc_tpu.encoder.core import EncoderConfig as JaxConfig
+from hevc_tpu.encoder.core import IntraEncoder as JaxIntra
+from hevc_tpu.encoder.core import RaEncoder as JaxRa
+from hevc_tpu.encoder.generate import synth_frame as jax_synth
+from hevc_tpu_torch.decoder import Decoder, TorchDecoder
+from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder, RaEncoder
+from hevc_tpu_torch.encoder.generate import synth_frame
+from test_torch_pipeline import CONFIGS, INLINE_ONLY
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "hevc_tpu_torch")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, subdirs, files in os.walk(PKG):
+        subdirs[:] = [s for s in subdirs if s not in ("build", "__pycache__")]
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    """The top-level package of every absolute import in the file."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_hevc_tpu():
+    files = _sources()
+    assert len(files) > 50
+    bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f))
+                                            & {"jax", "hevc_tpu"})
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def _encode(pkg_config, intra, ra, synth, kw, n):
+    cfg = pkg_config(**kw)
+    frames = [synth("noise", cfg.width, cfg.height, t, seed=3)
+              for t in range(n)]
+    if cfg.bit_depth > 8:
+        frames = [[p.astype(np.int32) << (cfg.bit_depth - 8) for p in f]
+                  for f in frames]
+    if cfg.gop == "ra":
+        return bytes(ra(cfg).encode(frames))
+    enc = intra(cfg)
+    return b"".join(enc.encode_frame(f) for f in frames)
+
+
+ALL_CONFIGS = dict(CONFIGS, **INLINE_ONLY)
+
+
+@pytest.mark.parametrize("name", sorted(ALL_CONFIGS))
+def test_port_encoder_is_byte_identical(name):
+    kw, n = ALL_CONFIGS[name]
+    got = _encode(EncoderConfig, IntraEncoder, RaEncoder, synth_frame, kw, n)
+    want = _encode(JaxConfig, JaxIntra, JaxRa, jax_synth, kw, n)
+    assert len(got) > 100 and got == want
+
+
+def test_decoder_refuses_an_unknown_backend():
+    with pytest.raises(ValueError, match="recon_backend 'jax'"):
+        Decoder(recon_backend="jax")
+    dec = TorchDecoder(device="cpu")
+    assert isinstance(dec, Decoder) and dec.recon_backend == "torch"
+    assert dec.device.type == "cpu"
+
+
+def test_torch_backend_refuses_shvc_enhancement_layers():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        TorchDecoder(device="cpu")._start_el_picture(None, None, None)
+
+
+def test_torch_backend_refuses_pictures_without_native_records(monkeypatch):
+    cfg = EncoderConfig(width=64, height=64, qp=30, gop="ipp")
+    data = IntraEncoder(cfg).encode_frame(synth_frame("noise", 64, 64, 0,
+                                                      seed=3))
+    monkeypatch.setenv("HEVC_TPU_NATIVE_PACK", "0")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        TorchDecoder(device="cpu").decode_bytes(data)

@@ -1,26 +1,37 @@
-"""The port imports no JAX: a fresh interpreter in which ``import jax``
-fails imports every module of hevc_tpu_torch and decodes a small IPP
-stream through the CLI on the CPU, with the SEI MD5 checked."""
+"""The port stands alone: a fresh interpreter in which ``import jax`` and
+``import hevc_tpu`` both fail imports every module of hevc_tpu_torch,
+encodes a small IPP/WPP stream with the port's encoder and decodes it
+through the port's CLI on the CPU, with every SEI MD5 correct."""
 import os
 import subprocess
 import sys
 
 import pytest
 
-from hevc_tpu import native
+from hevc_tpu_torch import native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, sys
 sys.modules["jax"] = None          # any "import jax" raises ImportError
-import numpy as np
+sys.modules["hevc_tpu"] = None     # and so does any "import hevc_tpu"
 import hevc_tpu_torch
-mods = [m.name for m in pkgutil.iter_modules(hevc_tpu_torch.__path__)]
+root = os.path.dirname(hevc_tpu_torch.__file__)
+mods = []
+for d, subdirs, files in os.walk(root):
+    subdirs[:] = [s for s in subdirs if s not in ("build", "csrc",
+                                                  "__pycache__")]
+    for f in sorted(files):
+        if f.endswith(".py"):
+            rel = os.path.relpath(os.path.join(d, f), os.path.dirname(root))
+            name = rel[:-3].replace(os.sep, ".")
+            mods.append(name[:-len(".__init__")]
+                        if name.endswith(".__init__") else name)
 for m in mods:
-    importlib.import_module("hevc_tpu_torch." + m)
-from hevc_tpu.encoder.core import EncoderConfig, IntraEncoder
-from hevc_tpu.encoder.generate import synth_frame
+    importlib.import_module(m)
+from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+from hevc_tpu_torch.encoder.generate import synth_frame
 cfg = EncoderConfig(width=64, height=64, qp=30, gop="ipp", wpp=True,
                     deblocking=True, sao=True, log2_ctb_size=5,
                     search_range=2, seed=1)
@@ -32,8 +43,9 @@ with open(path, "wb") as f:
 from hevc_tpu_torch import cli
 rc = cli.main(["-i", path, "-v", "40", "--device", "cpu"])
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] == "jax" and sys.modules[m] is not None)
-print("MODULES", len(mods), "JAX", loaded, "RC", rc)
+                if m.split(".")[0] in ("jax", "hevc_tpu")
+                and sys.modules[m] is not None)
+print("MODULES", len(mods), "BLOCKED", loaded, "RC", rc)
 """
 
 
@@ -48,8 +60,10 @@ def test_port_decodes_without_jax(tmp_path):
     assert r.stdout.count("Correct MD5") == 3, r.stdout
     assert "frame= 3 " in r.stdout
     last = r.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "MODULES" and int(last[1]) >= 12
-    assert r.stdout.strip().endswith("JAX [] RC 0")
+    # the sub-packages' modules too (bitstream, cabac, coding, decoder,
+    # encoder, io, native, ops)
+    assert last[0] == "MODULES" and int(last[1]) >= 50, last
+    assert r.stdout.strip().endswith("BLOCKED [] RC 0")
 
 
 def test_cuda_device_needs_a_card():

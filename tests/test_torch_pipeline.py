@@ -6,6 +6,10 @@
     outputs and the padded references must be equal.
 (b) ``TorchDecoder(device="cpu")`` against ``Decoder(recon_backend="jax")``
     and ``"inline"``, frame by frame, with every SEI MD5 correct.
+(c) The port's own host side against the JAX package's on the same
+    streams: the native stage-A records of every picture, and
+    ``native.pack_frame_native`` of both packages on the port's pictures
+    (two native libraries loaded in one process).
 All comparisons are bit-exact.
 """
 from functools import lru_cache
@@ -19,6 +23,8 @@ from hevc_tpu.decoder.core import Decoder
 from hevc_tpu.encoder.core import EncoderConfig, IntraEncoder, RaEncoder
 from hevc_tpu.encoder.generate import synth_frame
 from hevc_tpu.tpu import pipeline as JP
+from hevc_tpu_torch import native as port_native
+from hevc_tpu_torch import pipeline as PP
 from hevc_tpu_torch.decoder import TorchDecoder
 from hevc_tpu_torch.pipeline import frame_program
 from hevc_tpu_torch.tables import dpb_from_numpy
@@ -55,17 +61,29 @@ def _planes(frames):
             for f in frames]
 
 
+def _records(pic):
+    """A picture's native stage-A records, its chunks concatenated."""
+    rec, lvl = native._concat_chunks(pic.native_chunks)
+    return np.array(rec), np.array(lvl)
+
+
 @lru_cache(maxsize=None)
 def decoded(name):
-    """(stream, inline frames, jax frames, frame-program records) of one
-    config; each record holds the NumPy inputs and outputs of one JAX
-    ``_pipeline_frame`` call."""
+    """(stream, inline frames, jax frames, frame-program records, native
+    records) of one config; each frame-program record holds the NumPy
+    inputs and outputs of one JAX ``_pipeline_frame`` call, each native
+    record a picture's (rec, lvl) in decode order."""
     kw, n = CONFIGS[name]
     stream = _stream(EncoderConfig(**kw), n)
     inline = _planes(Decoder(check_md5=True,
                              recon_backend="inline").decode_bytes(stream))
-    records = []
+    records, stage_a = [], []
     orig = JP._pipeline_frame
+    orig_finish = JP.finish_frame_pipeline
+
+    def finish(pic, lay, poc):
+        stage_a.append(_records(pic))
+        return orig_finish(pic, lay, poc)
 
     def record(*args):
         out = orig(*args)
@@ -79,13 +97,45 @@ def decoded(name):
             spec=spec, out=[np.array(o) for o in out]))
         return out
 
-    JP._pipeline_frame = record
+    JP._pipeline_frame, JP.finish_frame_pipeline = record, finish
     try:
         jax_frames = _planes(Decoder(check_md5=True, recon_backend="jax")
                              .decode_bytes(stream))
     finally:
-        JP._pipeline_frame = orig
-    return stream, inline, jax_frames, records
+        JP._pipeline_frame, JP.finish_frame_pipeline = orig, orig_finish
+    return stream, inline, jax_frames, records, stage_a
+
+
+@lru_cache(maxsize=None)
+def port_decoded(name):
+    """(frames, native records, pack comparisons, frame-program inputs)
+    of ``TorchDecoder(device="cpu")`` on one config's stream.  Each pack
+    comparison is the port's and the JAX package's
+    ``pack_frame_native`` of one of the port's pictures; each
+    frame-program input is (meta, canvas0, spec)."""
+    stream = decoded(name)[0]
+    stage_a, packs, programs = [], [], []
+    orig_finish, orig_program = PP.finish_frame, PP.frame_program
+
+    def finish(pic, lay, poc, device):
+        stage_a.append(_records(pic))
+        packs.append((port_native.pack_frame_native(pic),
+                      native.pack_frame_native(pic)))
+        return orig_finish(pic, lay, poc, device)
+
+    def program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
+                canvas0, *rest):
+        programs.append((np.array(meta), canvas0, rest[-2]))
+        return orig_program(meta, meta16, meta8, avail_u8, levels16,
+                            scale_bank, canvas0, *rest)
+
+    PP.finish_frame, PP.frame_program = finish, program
+    try:
+        frames = _planes(TorchDecoder(check_md5=True,
+                                      device="cpu").decode_bytes(stream))
+    finally:
+        PP.finish_frame, PP.frame_program = orig_finish, orig_program
+    return frames, stage_a, packs, programs
 
 
 def run_port(rec):
@@ -110,9 +160,8 @@ def test_frame_program_matches_jax(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_torch_decoder_matches_jax_and_inline(name):
-    stream, inline, jax_frames, _ = decoded(name)
-    got = _planes(TorchDecoder(check_md5=True,
-                               device="cpu").decode_bytes(stream))
+    _stream_, inline, jax_frames = decoded(name)[:3]
+    got = port_decoded(name)[0]
     assert len(got) == len(inline) == len(jax_frames)
     for (a, _ma, pa), (b, _mb, pb), (c, mc, pc) in zip(inline, jax_frames,
                                                        got):
@@ -120,6 +169,64 @@ def test_torch_decoder_matches_jax_and_inline(name):
         for p in range(3):
             assert np.array_equal(a[p], c[p]), f"{name} poc {pc} plane {p}"
             assert np.array_equal(b[p], c[p])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_native_records_match_jax_package(name):
+    """The port's native stage A (its own copy of stage_a.cpp, built into
+    hevc_tpu_torch/build/) records what hevc_tpu.native records."""
+    want = decoded(name)[4]
+    got = port_decoded(name)[1]
+    assert len(got) == len(want) > 0
+    for k, ((gr, gl), (wr, wl)) in enumerate(zip(got, want)):
+        assert np.array_equal(gr, wr), f"{name} picture {k} records"
+        assert np.array_equal(gl, wl), f"{name} picture {k} levels"
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b) and a.dtype == b.dtype
+    return a == b
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_pack_frame_native_matches_jax_package(name):
+    packs = port_decoded(name)[2]
+    assert packs
+    for k, (got, want) in enumerate(packs):
+        for field in want.__dataclass_fields__:
+            assert _same(getattr(got, field), getattr(want, field)), \
+                f"{name} picture {k} PackedFrame.{field}"
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_resid_tus_lie_inside_the_canvas_and_are_disjoint(name):
+    """What makes resid_add_kernel's one launch over all four classes
+    exact: no TU of the port's pack straddles the canvas edge (where JAX
+    reads it from a clamped origin), so each TU reads only the pixels it
+    writes, and no two TUs of a picture, of any classes, share a pixel."""
+    n_tu = 0
+    for meta, canvas0, spec in port_decoded(name)[3]:
+        S = dict(spec)
+        ch, cw = canvas0
+        pos = sum(S["n_chunks"] * b * 8 for b in S["B"]) \
+            + sum(n * 9 for n in S["nlv"])
+        cover = np.zeros((ch, cw), np.int32)
+        for c, n in enumerate(S["resid_rows"]):
+            s = 4 << c
+            rows = meta[pos:pos + 3 * n].reshape(n, 3)
+            pos += 3 * n
+            assert ((rows[:, 0] >= 0) & (rows[:, 0] <= ch - s)
+                    & (rows[:, 1] >= 0) & (rows[:, 1] <= cw - s)).all()
+            for cy, cx, _slot in rows:
+                cover[cy:cy + s, cx:cx + s] += 1
+            n_tu += n
+        assert cover.max() <= 1
+    assert n_tu > 0
 
 
 # more formats of tests/test_pipeline.py CONFIGS, against the inline decoder
