@@ -23,25 +23,37 @@
    which no profiler session may precede: see PERF.md);
 5. the CABAC path: captures every WPP substream of that 1080p stream
    with the port's Python engine (one row per substream) and
-   encodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024); with the
-   launch count at 0, decodes all of them through
+   encodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024); the sets
+   are all 68 substreams, the first 17 (one picture's rows), the random
+   ones, the R = 1,024 set repeated to one row more than the card decodes
+   at once, and 33 ragged rows whose bins, bytes and row count are all
+   one more than a multiple of the kernel's chunk and vector width.  With
+   the launch count at 0, decodes all of them through
    ``hevc_tpu_torch.cabac.rows.decode_rows``; then holds the CABAC kernel's
    bins against the captured bins, the encoder's bins and the plain
-   version (tolerance 0), and times kernel and plain version;
+   version (tolerance 0, the padding included), times the bare launch,
+   the entry point and the plain version, and prints each set's chain
+   bound with its terms (``cabac.rows.chain_bound``, from the two
+   latencies ``chain_latency_kernel`` measures and the card's highest SM
+   clock);
 6. the probe path: with the launch counts at 0, runs
    ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the five
    TMA window cases of ``tools/probe_dma.py``, the 2,880-block TMA
    pipeline), checks each kernel against its plain version and the
    window outcomes (four OK, the two at an unaligned inner offset as two
    aligned boxes while one box there faults in a child process, and the
-   (40, 39) box refused by the tensor-map encoder), and times each kernel
-   beside its plain version;
+   (40, 39) box refused by the tensor-map encoder), checks that a tensor
+   map was encoded once per plane and box however many launches used it,
+   and times each kernel beside its plain version and the one PyTorch
+   call for the same function (by CUDA events here, and by
+   ``torch.profiler`` at the end);
 7. prints the kernel table as JSON: per kernel its launches on the
    counted run, its error against the plain version, the kernel's, the
    plain version's and (where one PyTorch call computes the same
-   function) that call's ms, and the bound: the larger of the bytes the
-   function must move over 3.35 TB/s and its operations over the card's
-   peak rate for their type; then the card, and last
+   function) that call's ms, and the bound: the largest of the bytes the
+   function must move over 3.35 TB/s, its operations over the card's
+   peak rate for their type and, where the work is one dependent chain a
+   row, that chain's latency; then the card, and last
    ``{"ok": true, "device": {...}}``, after checking that neither
    ``jax`` nor ``hevc_tpu`` was imported.
 
@@ -67,6 +79,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # every other phase is done: after a profiler session the process's later
 # launches of small eager ops ran slower (PERF.md, PR 3)
 PROFILE = []
+# (kernel name, the one PyTorch call for the same function): traced there
+# too, every kernel and copy of the call summed
+PROFILE_LIBRARY = []
 CACHE = os.path.join(ROOT, ".bench")
 W, H, QP, FRAMES = 1920, 1080, 30, 4
 STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_{FRAMES}f.265")
@@ -296,11 +311,15 @@ class Capture:
                          for k, v in self.ms.items())
 
 
-def bound_ms(n_bytes, n_ops):
-    """(ms, "bytes" or "operations"): the least time of the card for the
-    bytes at HBM_BYTES_S and the int32 operations at INT32_OPS_S."""
-    tb, to = n_bytes / HBM_BYTES_S * 1e3, n_ops / INT32_OPS_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def bound_ms(n_bytes, n_ops, chain_ms=0.0):
+    """(ms, "bytes", "operations" or "chain"): the least time of the card
+    for the bytes at HBM_BYTES_S, the int32 operations at INT32_OPS_S and,
+    for a kernel that is one dependent chain per unit of parallel work,
+    that chain (``cabac.rows.chain_bound``)."""
+    terms = {"bytes": n_bytes / HBM_BYTES_S * 1e3,
+             "operations": n_ops / INT32_OPS_S * 1e3, "chain": chain_ms}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def mc_work(refs_l, refs_c, table):
@@ -452,6 +471,7 @@ def phase_cabac(data, dev):
     import torch
     from hevc_tpu_torch import build, cabac_cuda
     from hevc_tpu_torch.cabac import rows as cabac
+    from hevc_tpu_torch.device import max_sm_clock_mhz
     t0 = time.perf_counter()
     real = cabac.capture_substreams(data)
     n_real = sum(len(r.sched) for r in real)
@@ -464,10 +484,34 @@ def phase_cabac(data, dev):
                              cabac.N_BINS, init_types=(0, 1, 2))
     log(f"encoded {len(rand)} random rows of {cabac.N_BINS} bins in "
         f"{time.perf_counter() - t0:.1f} s")
+    resident = cabac_cuda.resident_rows(dev)
+    assert resident == cabac.BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count
     sets = {"1080p substreams": real}
     sets.update({f"R={R}": rand[:R] for R in cabac.ROWS})
+    sets[f"R={resident + 1} (one more than resident)"] = [
+        rand[k % len(rand)] for k in range(resident + 1)]
     packed = {k: [t.to(dev) for t in cabac.pack_rows(v)]
               for k, v in sets.items()}
+    # one 1080p picture's 17 rows, at the width of all 68: the plain
+    # version's bins of a row do not depend on the other rows, so this
+    # set's are the first 17 rows of the 68 rows' (73,193 eager steps once)
+    sets["R=17 (one 1080p picture)"] = real[:17]
+    packed["R=17 (one 1080p picture)"] = [
+        t[:17].contiguous() for t in packed["1080p substreams"]]
+    ragged = cabac.ragged_rows(33, 2 * cabac.CHUNK + 1)
+    sets["33 ragged rows"] = ragged[0]
+    packed["33 ragged rows"] = [t.to(dev) for t in ragged[1:]]
+    d, sc = packed["33 ragged rows"][:2]
+    assert d.shape[1] % 16 == 1 and sc.shape[1] % cabac.CHUNK == 1
+
+    smem, alu = cabac_cuda.chain_latencies(dev)
+    mhz = max_sm_clock_mhz()
+    assert 10 < smem < 100 and 2 < alu < 20, (smem, alu)
+    log(f"chain bound terms: {smem} SM clocks a shared-memory round trip, "
+        f"{alu} a dependent ALU instruction (chain_latency_kernel), "
+        f"{mhz} MHz (nvidia-smi clocks.max.sm), {resident} rows at a time; "
+        f"per bin (round trips, instructions): {cabac.CHAIN}")
 
     # the counted run: every set through the entry point, count from 0
     build.reset_launches()
@@ -476,27 +520,46 @@ def phase_cabac(data, dev):
     launches = build.launches["cabac"]
     assert launches == len(sets), f"cabac launches {launches}"
 
-    err, ms = 0, {}
+    err, ms, bounds, plain68 = 0, {}, {}, None
     for k, rows in sets.items():
         data_t, sched, init, lens = packed[k]
-        out = got[k].cpu()
+        # the bins the Python engine decoded (captured rows) or the encoder
+        # was given (random rows); -1 in the padding
+        want = np.full(tuple(sched.shape), -1, np.int32)
         for i, r in enumerate(rows):
-            assert out[i, :len(r.bins)].tolist() == r.bins, \
-                f"cabac_kernel: {k} row {i} != the Python engine's bins"
-        t0 = time.perf_counter()
-        plain = cabac.decode_rows_plain(data_t, sched, init)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
+            want[i, :len(r.bins)] = r.bins
+        want = torch.from_numpy(want).to(dev)
+        assert bool(((got[k] == want) | (want < 0)).all()), \
+            f"cabac_kernel: {k} != the expected bins"
+        if k.startswith("R=17"):
+            plain, plain_s = plain68[:17], float("nan")
+        else:
+            t0 = time.perf_counter()
+            plain = cabac.decode_rows_plain(data_t, sched, init)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if k == "1080p substreams":
+                plain68 = plain
         e = int((got[k] - plain).abs().max())
         assert e == 0, f"cabac_kernel != plain on {k}"
         err = max(err, e)
         n = int(lens.sum())
         ms[k] = cuda_ms(lambda: cabac_cuda.launch_cabac(
             data_t, sched, init, sched.shape[1]), iters=10)
+        entry_ms = cuda_ms(lambda: cabac.decode_rows(data_t, sched, init),
+                           iters=10)
+        bounds[k] = cabac.chain_bound(sched, smem, alu, mhz, resident)
+        n_bytes = 4 * (data_t.numel() + 2 * sched.numel() + init.numel())
         log(f"cabac {k}: {len(rows)} rows x {sched.shape[1]} bins; kernel "
             f"== plain == expected; kernel {ms[k]} ms per launch, "
             f"{n / ms[k] / 1e3} Mbins/s ({sched.numel() / ms[k] / 1e3} "
-            f"Mbins/s counting padding); plain {plain_s * 1e3} ms once")
+            f"Mbins/s counting padding); entry point decode_rows {entry_ms} "
+            f"ms; plain {plain_s * 1e3} ms once; chain bound "
+            f"{bounds[k]['ms']} ms ({bounds[k]['ms'] / ms[k]:.3f} of the "
+            f"kernel's time) for the longest row's (context, bypass, "
+            f"terminate) bins {bounds[k]['bins']} = {bounds[k]['clocks']} "
+            f"clocks x {bounds[k]['waves']} waves; bytes bound "
+            f"{n_bytes / HBM_BYTES_S * 1e3} ms")
     data_t, sched, init, _ = packed["R=132"]
     plain_ms = cuda_ms(lambda: cabac.decode_rows_plain(data_t, sched, init),
                        iters=2, warmup=1)
@@ -504,10 +567,11 @@ def phase_cabac(data, dev):
         data_t, sched, init, sched.shape[1])))
     log(f"cabac R=132: plain {plain_ms} ms (CUDA events)")
     # bytes: data, schedule and initial states read once, bins written
-    # once; operations: about 16 int32 operations a bin step
+    # once; operations: about 16 int32 operations a bin step; chain: the
+    # longest row's
     n_bytes = 4 * (data_t.numel() + 2 * sched.numel() + init.numel())
     return launches, err, ms["R=132"], plain_ms, bound_ms(
-        n_bytes, 16 * sched.numel())
+        n_bytes, 16 * sched.numel(), bounds["R=132"]["ms"])
 
 
 # what the card answers: a window at an unaligned inner offset (x = 37
@@ -527,6 +591,7 @@ def phase_probes(dev):
     import torch
     from hevc_tpu_torch import build, probes
     build.reset_launches()
+    probes.clear_tensor_maps()
     res = probes.run_probes(dev, log=log)
     torch.cuda.synchronize()
     counts = {k: build.launches[k] for k in probes.PROBES}
@@ -534,12 +599,29 @@ def phase_probes(dev):
     assert set(res["tile_shift"].values()) == {0}, res["tile_shift"]
     assert res["tma_window"] == WINDOW_OUTCOMES, res["tma_window"]
     assert res["tma_pipe"] == 0, "tma_pipe_kernel != plain"
+    # a tensor map per plane and box: the three boxes the encoder took of
+    # the one window plane (its refusal of the fourth is not kept), and
+    # the pipe's source and destination
+    boxes = {c.shape for c in probes.WINDOW_CASES} - {(40, 39)}
+    encodes = build.launches["tma_encode"]
+    assert counts["tma_window"] == 4 and encodes == len(boxes) + 2 == 5, \
+        f"{encodes} tensor maps encoded for {counts}"
+    probes.clear_tensor_maps()
     times = probes.time_probes(dev)
+    timed = {k: build.launches[k] - counts[k] for k in probes.PROBES}
+    encodes = build.launches["tma_encode"] - encodes
+    assert min(timed.values()) >= 20 and timed["tma_window"] >= 40 \
+        and encodes == 3, \
+        f"{encodes} tensor maps encoded for the timed launches {timed}"
+    log(f"tensor maps: 5 encoded on the probe path, {encodes} for the timed "
+        f"launches {timed} (one plane and box each: the window's, the "
+        "pipe's source and destination)")
     ms, plain_ms = times["tma_pipe"]
     log(f"tma pipe: {ms} ms per launch, {ms / probes.PIPE_BLOCKS * 1e3} "
         f"us/block, {probes.PIPE_BYTES / ms / 1e6} GB/s "
         f"({probes.PIPE_BYTES} B); plain index copy {plain_ms} ms")
-    log(f"probe times, ms (kernel, plain): {times}; launch counts {counts}")
+    log(f"probe times, ms (kernel, plain; tma_window is the bare launch, "
+        f"tma_window_call the entry point): {times}; launch counts {counts}")
 
     # one PyTorch call for the same function on the same inputs, and the
     # kernels' launches to trace with the profiler at the end
@@ -562,11 +644,12 @@ def phase_probes(dev):
     def index_copy():
         out[ys, xs] = x[ys, xs]
 
-    library = {
-        "tile_shift": cuda_ms(lambda: torch.roll(tile, probes.SHIFT, (0, 1))),
-        "tma_window": cuda_ms(
-            lambda: plane[oy:oy + wh, ox:ox + ww].clone()),
-        "tma_pipe": cuda_ms(index_copy, iters=5)}
+    calls = {"tile_shift": lambda: torch.roll(tile, probes.SHIFT, (0, 1)),
+             "tma_window": lambda: plane[oy:oy + wh, ox:ox + ww].clone(),
+             "tma_pipe": index_copy}
+    library = {k: cuda_ms(fn, iters=5 if k == "tma_pipe" else 20)
+               for k, fn in calls.items()}
+    PROFILE_LIBRARY.extend(calls.items())
     pout = torch.zeros_like(x)
     PROFILE.extend([
         ("tile_shift_kernel",
@@ -714,6 +797,10 @@ def main():
     device = {name: profiler_ms(fn, name, iters=5) for name, fn in PROFILE}
     log(f"device ms per launch (torch.profiler, after every other phase): "
         f"{device}")
+    library = {name: profiler_ms(fn, None, iters=5)
+               for name, fn in PROFILE_LIBRARY}
+    log(f"device ms of the probes' library calls (torch.profiler, every "
+        f"kernel of the call): {library}")
     blocked = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "hevc_tpu"))
     assert not blocked, f"the port imported {blocked}"

@@ -9,7 +9,8 @@ which ``.gitignore`` lists.
 The wrappers (``mc_cuda``, ``cabac_cuda``, ``probes``) share what is kept
 here: the tensor check, the error check and the launch counts.  Each
 launch of a kernel adds one to ``launches[name]``; nothing else touches
-the counts.
+the counts.  ``launches["tma_encode"]`` counts the tensor maps
+``probes.tensor_map`` encoded, which is host work and no launch.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 launches = dict.fromkeys(("mc", "resid_add", "cabac", "tile_shift",
-                          "tma_window", "tma_pipe"), 0)
+                          "tma_window", "tma_pipe", "tma_encode"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -103,14 +104,19 @@ def load() -> C.CDLL:
             lib.hevc_cabac_launch.argtypes = [p, i, p, i, i, p, i, p, i, p,
                                               p]
             lib.hevc_cabac_launch.restype = i
+            ip = C.POINTER(C.c_int)
+            lib.hevc_cabac_resident_rows.argtypes = [ip]
+            lib.hevc_cabac_resident_rows.restype = i
+            lib.hevc_chain_latency_launch.argtypes = [i, i, i, p, p]
+            lib.hevc_chain_latency_launch.restype = i
             lib.hevc_tile_shift_launch.argtypes = [p, i, i, p, i, i, i, p, p]
             lib.hevc_tile_shift_launch.restype = i
-            ip = C.POINTER(C.c_int)
-            lib.hevc_tma_window_launch.argtypes = [p, i, i, i, i, i, i, i, i,
-                                                   p, p, ip]
+            # a tensor map is 128 bytes of the caller's (a ctypes array)
+            lib.hevc_tma_encode.argtypes = [p, p, i, i, i, i, ip]
+            lib.hevc_tma_encode.restype = i
+            lib.hevc_tma_window_launch.argtypes = [p, i, i, i, i, i, i, p, p]
             lib.hevc_tma_window_launch.restype = i
-            lib.hevc_tma_pipe_launch.argtypes = [p, p, i, i, p, i, i, i, p,
-                                                 ip]
+            lib.hevc_tma_pipe_launch.argtypes = [p, p, p, i, i, i, p]
             lib.hevc_tma_pipe_launch.restype = i
             lib.hevc_stream_sync.argtypes = [p]
             lib.hevc_stream_sync.restype = i

@@ -14,7 +14,9 @@ through ``decode_rows_plain``.
 
 decodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024), holds the
 kernel against the plain version and the encoder's bins, and prints
-Mbins/s from CUDA events.
+Mbins/s from CUDA events beside the chain bound (``chain_bound``): a row
+is one dependent chain of bins, so the least time of a set is its longest
+row's chain, not its bytes.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from ..device import cuda_ms, resolve_device
+from ..device import cuda_ms, max_sm_clock_mhz, resolve_device
 from .ctx import ContextModel
 from .engine import (RANGE_TAB_LPS, TRANS_IDX_LPS, TRANS_IDX_MPS,
                      CabacDecoder, CabacEncoder)
@@ -40,6 +42,17 @@ N_CTX = len(ContextModel(0, 26).states)
 # one row per SM (132) and 1,024
 N_BINS = 4096
 ROWS = (1, 8, 132, 1024)
+# csrc/cabac.cu: the bins of one staged chunk of the schedule (kChunk) and
+# the one-warp blocks, a row each, that an SM holds (kBlocksPerSm)
+CHUNK = 128
+BLOCKS_PER_SM = 32
+# the least loop-carried chain of one bin by kind, (shared-memory round
+# trips, dependent 32-bit ALU instructions).  Context: the range quarter
+# and the table index (2), the table word, then mask, subtract, compare,
+# select, count leading zeros, subtract, shift (7).  Bypass: shift in a
+# bit, compare, subtract.  Terminate: subtract, compare, count leading
+# zeros, subtract, select, shift.
+CHAIN = {"context": (1, 9), "bypass": (0, 3), "terminate": (0, 6)}
 
 # renormalisation: _SHIFT[r] doublings bring the range r to >= 256
 _SHIFT = np.asarray([0] + [max(0, 9 - r.bit_length()) for r in range(1, 512)],
@@ -64,13 +77,43 @@ def cabac_tables(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(t).to(device)
 
 
+# the pseudo-states through which bypass and terminate bins take the
+# context bin's step in ``cabac_kernel``, and the slots of the kernel's 256
+# context states that hold them (schedule entry & 255)
+BYPASS_STATE, TERMINATE_STATE = 130, 128
+MAX_CTX = 254
+
+
+@lru_cache(maxsize=None)
+def cabac_step_table(device: torch.device) -> torch.Tensor:
+    """int32 [132 * 4], the one word a bin of ``cabac_kernel`` reads,
+    indexed by ``state * 4 + ((range >> 6) & 3)`` with state =
+    (pStateIdx << 1) | valMps: bits 0-7 rangeTabLps, bits 8-15 the state
+    after an LPS (valMps flipped at pStateIdx 0), bits 16-23 the state
+    after an MPS (the three tables of ``cabac/engine.py``), bits 24-31 the
+    doublings that bring rangeTabLps to >= 256.  After the 128 context
+    states come the pseudo-states: ``TERMINATE_STATE`` (rangeTabLps 2) and
+    ``BYPASS_STATE`` (rangeTabLps 0), both even (the bin is 1 when the
+    offset reaches the range left) and both their own successors."""
+    t = np.zeros((132, 4), np.int32)
+    for s in range(128):
+        p, mps = s >> 1, s & 1
+        lps = (TRANS_IDX_LPS[p] << 1) | (1 - mps if p == 0 else mps)
+        t[s] = [RANGE_TAB_LPS[p][q] | lps << 8
+                | ((TRANS_IDX_MPS[p] << 1) | mps) << 16
+                | int(_SHIFT[RANGE_TAB_LPS[p][q]]) << 24 for q in range(4)]
+    t[TERMINATE_STATE] = 2 | TERMINATE_STATE << 8 | TERMINATE_STATE << 16
+    t[BYPASS_STATE] = 0 | BYPASS_STATE << 8 | BYPASS_STATE << 16
+    return torch.from_numpy(t.ravel()).to(device)
+
+
 def random_rows(rng: np.random.Generator, R: int, n_bins: int,
-                init_types=(1,), qp: int = 30) -> List[Row]:
+                init_types=(1,), qp: int = 30, mix=(0.70, 0.25)) -> List[Row]:
     """R random schedules, each encoded with ``CabacEncoder`` from the
-    contexts of init type ``init_types[k % len(init_types)]``: 70% context
-    bins, 25% bypass, 5% mid-stream terminates (value 0), closed by a
-    terminate of 1 that is not in the schedule (the rows of
-    ``tests/test_cabac_pallas.py``)."""
+    contexts of init type ``init_types[k % len(init_types)]``: shares
+    ``mix`` of context and bypass bins, the rest mid-stream terminates of
+    value 0 (70%, 25% and 5%: the rows of ``tests/test_cabac_pallas.py``),
+    closed by a terminate of 1 that is not in the schedule."""
     rows = []
     for k in range(R):
         cm = ContextModel(init_types[k % len(init_types)], qp)
@@ -81,10 +124,10 @@ def random_rows(rng: np.random.Generator, R: int, n_bins: int,
         enc = CabacEncoder()
         sched, bins = [], []
         for r, i, b in zip(kind.tolist(), idx.tolist(), bit.tolist()):
-            if r < 0.70:
+            if r < mix[0]:
                 enc.encode_bin((cm.states, i), b)
                 sched.append(i)
-            elif r < 0.95:
+            elif r < mix[0] + mix[1]:
                 enc.encode_bypass(b)
                 sched.append(BYPASS)
             else:
@@ -118,6 +161,25 @@ def pack_rows(rows: List[Row]):
             torch.from_numpy(init), lens)
 
 
+# (R, n_bins) around the kernel's chunk of bins, for the tests that hold
+# the plain version to the JAX kernel and the CUDA kernel to the plain one
+SHAPE_GRID = ((1, 1), (3, CHUNK - 1), (5, CHUNK + 1), (33, 2 * CHUNK + 3))
+
+
+def ragged_rows(R: int, n_bins: int):
+    """(rows, data, sched, init, lens): R random rows of ``n_bins`` bins,
+    every third one shorter so that the set has padding, packed with
+    ``n_bytes`` one more than a multiple of 16: rows that start and end off
+    every vector boundary."""
+    rng = np.random.default_rng(R * 1000 + n_bins)
+    rows = [random_rows(rng, 1, max(1, n_bins - (k % 3 == 2) * (k + 1)),
+                        init_types=(k % 3,))[0] for k in range(R)]
+    data, sched, init, lens = pack_rows(rows)
+    pad = (1 - data.shape[1]) % 16
+    data = torch.cat([data, torch.zeros((R, pad), dtype=torch.int32)], 1)
+    return rows, data, sched, init, lens
+
+
 def check_rows(data, sched, init, n_bins=None) -> int:
     """Validate the three tensors; returns the number of bins to decode."""
     dev = data.device
@@ -129,7 +191,7 @@ def check_rows(data, sched, init, n_bins=None) -> int:
     R = data.shape[0]
     if sched.shape[0] != R or init.shape[0] != R:
         raise ValueError("decode_rows: data, sched and init differ in rows")
-    if data.shape[1] < 1 or not 1 <= init.shape[1] <= 256:
+    if data.shape[1] < 1 or not 1 <= init.shape[1] <= MAX_CTX:
         raise ValueError(f"decode_rows: {data.shape[1]} bytes, "
                          f"{init.shape[1]} contexts")
     n = sched.shape[1] if n_bins is None else int(n_bins)
@@ -208,6 +270,30 @@ def decode_rows_plain(data, sched, init, n_bins=None):
         off = torch.where(is_byp, off_b, s32((off3 << n) | bits))
         rng = torch.where(is_byp, rng, rng3 << n)
     return out
+
+
+def chain_bound(sched, smem_clocks: float, alu_clocks: float,
+                clock_mhz: float, resident_rows: int) -> dict:
+    """The least time the card could take for ``sched`` (int32 [R,
+    n_bins], R >= 1), as the terms of the bound: a row is one dependent
+    chain (bin i + 1 starts from the range and offset bin i leaves), so
+    the set takes at least its longest row's chain, once for every
+    ``resident_rows`` rows the card decodes at a time.  A bin's chain is
+    ``CHAIN[kind]``: its shared-memory round trips at ``smem_clocks`` each
+    and its dependent ALU instructions at ``alu_clocks`` each, at
+    ``clock_mhz``.  Returns {"bins": (context, bypass, terminate) of the
+    longest chain, "clocks": that chain, "waves", "ms"}."""
+    s = sched.cpu()
+    counts = torch.stack([(s >= 0).sum(1), (s == BYPASS).sum(1),
+                          (s == TERMINATE).sum(1)], 1).double()
+    clocks = counts @ torch.tensor(
+        [n_smem * smem_clocks + n_alu * alu_clocks
+         for n_smem, n_alu in CHAIN.values()], dtype=torch.float64)
+    k = int(clocks.argmax())
+    waves = -(-s.shape[0] // resident_rows)
+    return {"bins": tuple(int(v) for v in counts[k]),
+            "clocks": float(clocks[k]), "waves": waves,
+            "ms": waves * float(clocks[k]) / (clock_mhz * 1e3)}
 
 
 def decode_rows(data, sched, init, n_bins=None):
@@ -316,6 +402,11 @@ def main(argv=None) -> int:
                        init_types=(0, 1, 2))
     print(f"encoded {len(rows)} rows of {N_BINS} bins in "
           f"{time.perf_counter() - t0:.1f} s")
+    smem, alu = cabac_cuda.chain_latencies(dev)
+    mhz, resident = max_sm_clock_mhz(), cabac_cuda.resident_rows(dev)
+    print(f"chain bound from {smem:.2f} clocks a shared-memory round trip, "
+          f"{alu:.2f} a dependent ALU instruction, {mhz:.0f} MHz, "
+          f"{resident} rows at a time")
     for R in ROWS:
         data, sched, init, _ = (t.to(dev) for t in pack_rows(rows[:R]))
         got = decode_rows(data, sched, init)
@@ -327,8 +418,10 @@ def main(argv=None) -> int:
         ms = cuda_ms(lambda: cabac_cuda.launch_cabac(data, sched, init,
                                                      N_BINS), iters=10)
         rate = R * N_BINS / ms / 1e3
+        bound = chain_bound(sched, smem, alu, mhz, resident)
         print(f"R={R}: {rate:.3f} Mbins/s total ({rate / R:.4f} Mbins/s per "
-              f"row, {ms:.4f} ms per launch); kernel == plain == encoder")
+              f"row, {ms:.4f} ms per launch, chain bound {bound['ms']:.4f} ms"
+              f" for bins {bound['bins']}); kernel == plain == encoder")
     print(f"card: {torch.cuda.get_device_name(dev)}")
     return 0
 

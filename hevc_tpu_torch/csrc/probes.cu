@@ -7,22 +7,25 @@
 // read-and-write-back pipeline of 48x256 int32 blocks costs.
 //
 // Plain C interface, loaded with ctypes (hevc_tpu_torch/build.py).  The
-// launchers enqueue on the stream they are given and allocate nothing.
-// They return 0 or an error code (a cudaError_t unless `stage` says
-// otherwise) and set `stage`: 1 = cuTensorMapEncodeTiled refused the box
-// (the code is its CUresult), 2 = the kernel was launched, 3 = libcuda
-// has no cuTensorMapEncodeTiled.
+// launchers enqueue on the stream they are given, allocate nothing and
+// return 0 or a cudaError_t.  The TMA launchers take tensor maps that
+// hevc_tma_encode made: 128 bytes the caller owns and may keep for every
+// later launch on the same plane and box, so a launch encodes nothing.
+// hevc_tma_encode returns 0 or an error code and sets `stage`: 1 =
+// cuTensorMapEncodeTiled refused the box (the code is its CUresult), 3 =
+// libcuda has no cuTensorMapEncodeTiled (the code is a cudaError_t).
 // The plain PyTorch versions are in hevc_tpu_torch/probes.py.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kRing = 4;  // stages of tma_pipe_kernel's ring
 
-enum { kStageEncode = 1, kStageLaunch = 2, kStageEntry = 3 };
+enum { kStageEncode = 1, kStageEntry = 3 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -290,31 +293,36 @@ int hevc_tile_shift_launch(const int32_t* x, int h, int w,
   return (int)cudaGetLastError();
 }
 
-int hevc_tma_window_launch(int32_t* plane, int H, int W, int wh, int ww,
-                           int oy, int ox, int split, int write, int32_t* out,
-                           void* stream, int* stage) {
-  CUtensorMap map;
-  int rc = encode_plane(&map, plane, H, W, wh, ww, stage);
-  if (rc) return rc;
+// The tensor map of the row-major int32 (H, W) plane with a (bh, bw) box,
+// into the 128 bytes at `map`.
+int hevc_tma_encode(void* map, const int32_t* plane, int H, int W, int bh,
+                    int bw, int* stage) {
+  CUtensorMap m;
+  const int rc = encode_plane(&m, plane, H, W, bh, bw, stage);
+  if (!rc) memcpy(map, &m, sizeof m);
+  return rc;
+}
+
+int hevc_tma_window_launch(const void* map, int wh, int ww, int oy, int ox,
+                           int split, int write, int32_t* out, void* stream) {
+  CUtensorMap m;
+  memcpy(&m, map, sizeof m);
   const size_t smem = (size_t)(split && (ox & 3) ? 2 : 1) * wh * ww * 4 + 128;
-  rc = set_smem(tma_window_kernel, smem);
+  const int rc = set_smem(tma_window_kernel, smem);
   if (rc) return rc;
-  *stage = kStageLaunch;
   tma_window_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(
-      map, wh, ww, oy, ox, split, write, out);
+      m, wh, ww, oy, ox, split, write, out);
   return (int)cudaGetLastError();
 }
 
-int hevc_tma_pipe_launch(const int32_t* x, int32_t* out, int H, int W,
+int hevc_tma_pipe_launch(const void* src_map, const void* dst_map,
                          const int32_t* origins, int n, int bh, int bw,
-                         void* stream, int* stage) {
+                         void* stream) {
   CUtensorMap src, dst;
-  int rc = encode_plane(&src, x, H, W, bh, bw, stage);
-  if (rc) return rc;
-  rc = encode_plane(&dst, out, H, W, bh, bw, stage);
-  if (rc) return rc;
+  memcpy(&src, src_map, sizeof src);
+  memcpy(&dst, dst_map, sizeof dst);
   int dev = 0, sms = 0;
-  rc = (int)cudaGetDevice(&dev);
+  int rc = (int)cudaGetDevice(&dev);
   if (!rc)
     rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
@@ -322,8 +330,6 @@ int hevc_tma_pipe_launch(const int32_t* x, int32_t* out, int H, int W,
   const size_t smem = (size_t)kRing * box_bytes + 128;
   if (!rc) rc = set_smem(tma_pipe_kernel, smem);
   if (rc) return rc;
-  if (n <= 0) return 0;
-  *stage = kStageLaunch;
   tma_pipe_kernel<<<sms, 32, smem, (cudaStream_t)stream>>>(src, dst, origins,
                                                             n, box_bytes);
   return (int)cudaGetLastError();

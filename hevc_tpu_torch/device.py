@@ -6,6 +6,8 @@ is never chosen implicitly.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -27,11 +29,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def profiler_ms(fn, name: str, iters: int = 20, warmup: int = 3):
+def max_sm_clock_mhz() -> float:
+    """The first card's highest SM clock in MHz, as ``nvidia-smi`` reads
+    it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def profiler_ms(fn, name=None, iters: int = 20, warmup: int = 3):
     """Mean device time in ms of the kernels whose name contains ``name``
-    per call of fn(), over ``iters`` calls traced by ``torch.profiler``
-    after ``warmup`` calls; None when the trace holds no device time for
-    such a kernel."""
+    (of every kernel and copy, when ``name`` is None) per call of fn(),
+    over ``iters`` calls traced by ``torch.profiler`` after ``warmup``
+    calls; None when the trace holds no device time for such a kernel."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -41,7 +52,7 @@ def profiler_ms(fn, name: str, iters: int = 20, warmup: int = 3):
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "device_time_total", 0) or 0
-             for e in prof.key_averages() if name in e.key)
+             for e in prof.key_averages() if name is None or name in e.key)
     return us / 1e3 / iters if us > 0 else None
 
 

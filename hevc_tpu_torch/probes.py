@@ -11,7 +11,9 @@ probes ``tools/probe_roll.py`` and ``tools/probe_dma.py``.
 
 Each kernel (``csrc/probes.cu``) has a plain PyTorch version here; CPU
 tensors take it, CUDA tensors launch the kernel or raise.  Each launch
-adds one to ``build.launches[name]``.
+adds one to ``build.launches[name]``.  A TMA launch takes its tensor map
+from ``tensor_map``, which encodes one per plane and box and keeps it
+(``build.launches["tma_encode"]`` counts the encodings).
 
     python -m hevc_tpu_torch.probes
 
@@ -79,14 +81,51 @@ class TmaRejected(RuntimeError):
         self.code = code
 
 
-def _raise(rc, stage, what):
-    if rc == 0:
-        return
-    if stage == 1:
-        raise TmaRejected(rc)
-    if stage == 3:
-        raise RuntimeError(f"{what}: libcuda has no cuTensorMapEncodeTiled")
-    build.raise_on(rc, what)
+# encoded tensor maps (128 bytes each) by ``tensor_map_key``, oldest first
+_TENSOR_MAPS: dict = {}
+_MAX_TENSOR_MAPS = 64
+
+
+def clear_tensor_maps() -> None:
+    """Forget every encoded tensor map (a count of encodings starts from
+    a known state)."""
+    _TENSOR_MAPS.clear()
+
+
+def tensor_map_key(plane, box):
+    """What a tensor map encodes: the plane's address and shape and the
+    box.  A map outlives the tensor it was made for: another tensor of the
+    same shape at the same address takes the same map."""
+    return (plane.data_ptr(), *plane.shape, *box)
+
+
+def tensor_map(plane, box):
+    """The TMA tensor map (128 bytes) of the contiguous int32 CUDA
+    ``plane`` with ``box``: encoded on first use, then kept, so a second
+    launch on the same plane and box encodes nothing.  Raises
+    ``TmaRejected`` when the encoder refuses the box; a refusal is not
+    kept."""
+    if plane.device.type != "cuda":
+        raise ValueError(f"tensor_map: the plane lies on {plane.device}")
+    key = tensor_map_key(plane, box)
+    m = _TENSOR_MAPS.get(key)
+    if m is None:
+        m, stage = (C.c_ubyte * 128)(), C.c_int(0)
+        with torch.cuda.device(plane.device):
+            rc = build.load().hevc_tma_encode(m, plane.data_ptr(),
+                                              *plane.shape, *box,
+                                              C.byref(stage))
+        if stage.value == 1:
+            raise TmaRejected(rc)
+        if stage.value == 3:
+            raise RuntimeError("tensor_map: libcuda has no "
+                               "cuTensorMapEncodeTiled")
+        build.raise_on(rc, "tensor_map")
+        build.launches["tma_encode"] += 1
+        if len(_TENSOR_MAPS) >= _MAX_TENSOR_MAPS:
+            del _TENSOR_MAPS[next(iter(_TENSOR_MAPS))]
+        _TENSOR_MAPS[key] = m
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -162,24 +201,31 @@ def tma_window(plane, shape, origin, write, split=True):
     ``split``, a window whose inner offset is not 16-byte aligned moves as
     two boxes at aligned offsets; without it, as one box at its own offset
     (``one_box_outcome`` asks what that does).  On the card,
-    raises ``TmaRejected`` when the tensor-map encoder refuses the box."""
+    raises ``TmaRejected`` when the tensor-map encoder refuses the box
+    (``tensor_map``)."""
     if plane.device.type == "cpu":
         return window_plain(plane, shape, origin, write)
     dev = plane.device
     build.check_tensor("plane", plane, 2, dev)
     _check_window(plane, shape, origin)
-    (wh, ww), (oy, ox) = shape, origin
     out = (plane if write else
-           torch.empty((wh, ww), dtype=torch.int32, device=dev))
-    stage = C.c_int(0)
+           torch.empty(shape, dtype=torch.int32, device=dev))
+    return launch_tma_window(tensor_map(plane, shape), shape, origin, split,
+                             write, out)
+
+
+def launch_tma_window(tmap, shape, origin, split, write, out):
+    """Launch ``tma_window_kernel`` once with the encoded tensor map
+    ``tmap`` of the plane and ``shape`` (``tensor_map``): the window at
+    ``origin`` is read into ``out``, or set to 7 in the plane, which
+    ``out`` then is.  Nothing is checked here: ``tma_window`` does."""
+    dev = out.device
     with torch.cuda.device(dev):
         rc = build.load().hevc_tma_window_launch(
-            plane.data_ptr(), *plane.shape, wh, ww, oy, ox, int(split),
-            int(write), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream, C.byref(stage))
-    if stage.value == 2:
-        build.launches["tma_window"] += 1
-    _raise(rc, stage.value, "tma_window_kernel")
+            tmap, *shape, *origin, int(split), int(write), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.launches["tma_window"] += 1
+    build.raise_on(rc, "tma_window_kernel")
     return out
 
 
@@ -232,15 +278,15 @@ def launch_tma_pipe(x, origins, out):
     if out.shape != x.shape:
         raise ValueError(f"tma_pipe: out {tuple(out.shape)} != x "
                          f"{tuple(x.shape)}")
-    stage = C.c_int(0)
+    if origins.shape[0] == 0:
+        return out
     with torch.cuda.device(dev):
         rc = build.load().hevc_tma_pipe_launch(
-            x.data_ptr(), out.data_ptr(), *x.shape, origins.data_ptr(),
-            origins.shape[0], *PIPE_BOX,
-            torch.cuda.current_stream(dev).cuda_stream, C.byref(stage))
-    if stage.value == 2:
-        build.launches["tma_pipe"] += 1
-    _raise(rc, stage.value, "tma_pipe_kernel")
+            tensor_map(x, PIPE_BOX), tensor_map(out, PIPE_BOX),
+            origins.data_ptr(), origins.shape[0], *PIPE_BOX,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.launches["tma_pipe"] += 1
+    build.raise_on(rc, "tma_pipe_kernel")
     return out
 
 
@@ -310,8 +356,9 @@ def run_probes(dev, log=print):
         log(f"{name}: {'OK' if err == 0 else 'WRONG'}")
     plane = torch.arange(PLANE[0] * PLANE[1], dtype=torch.int32) \
         .reshape(PLANE)
+    src = plane.to(dev)  # one plane for every case: a tensor map per box
     for k, case in enumerate(WINDOW_CASES):
-        src = plane.to(dev)
+        src.copy_(plane)
         try:
             got = tma_window(src, case.shape, case.origin, case.write).cpu()
             want = window_plain(plane.clone(), case.shape, case.origin,
@@ -343,8 +390,12 @@ def run_probes(dev, log=print):
 def time_probes(dev):
     """(kernel ms, plain ms) of each probe on the card, at the probes'
     shapes: the roll, the (40, 128) odd-offset window read and the pipe.
-    The pipe's launch and its plain index copy are timed without the
-    origins' check, which reads them back and so waits for the card."""
+    The window is timed twice: ``tma_window`` is the bare launch into a
+    buffer with the tensor map in hand (``launch_tma_window``),
+    ``tma_window_call`` the entry point with its checks, its look-up of
+    the map and its allocation.  The pipe's launch and its plain index
+    copy are timed without the origins' check, which reads them back and
+    so waits for the card."""
     tile = torch.arange(TILE[0] * TILE[1], dtype=torch.int32,
                         device=dev).reshape(TILE)
     shift = torch.tensor(SHIFT, dtype=torch.int32, device=dev)
@@ -355,14 +406,19 @@ def time_probes(dev):
     org = pipe_origins().to(dev)
     out = torch.zeros_like(x)
     case = WINDOW_CASES[1]
+    tmap = tensor_map(plane, case.shape)
+    wout = torch.empty(case.shape, dtype=torch.int32, device=dev)
+    plain_ms = cuda_ms(lambda: window_plain(plane, case.shape, case.origin,
+                                            False))
     return {
         "tile_shift": (cuda_ms(lambda: tile_shift(tile, shift, ROLL)),
                        cuda_ms(lambda: tile_shift_plain(tile, shift, ROLL))),
         "tma_window": (
+            cuda_ms(lambda: launch_tma_window(tmap, case.shape, case.origin,
+                                              True, False, wout)), plain_ms),
+        "tma_window_call": (
             cuda_ms(lambda: tma_window(plane, case.shape, case.origin,
-                                       False)),
-            cuda_ms(lambda: window_plain(plane, case.shape, case.origin,
-                                         False))),
+                                       False)), plain_ms),
         "tma_pipe": (cuda_ms(lambda: launch_tma_pipe(x, org, out)),
                      cuda_ms(lambda: pipe_plain(x, org), iters=5)),
     }
@@ -390,7 +446,7 @@ def main(argv=None) -> int:
     print(f"tma-pipeline: {ms:.4f} ms ({ms / PIPE_BLOCKS * 1e3:.4f} us/block, "
           f"{PIPE_BYTES / ms / 1e6:.1f} GB/s); plain index copy {plain:.4f} "
           "ms")
-    for k in ("tile_shift", "tma_window"):
+    for k in ("tile_shift", "tma_window", "tma_window_call"):
         print(f"{k}: {times[k][0]:.4f} ms per launch, plain {times[k][1]:.4f}"
               " ms")
     print(f"card: {torch.cuda.get_device_name(dev)}")

@@ -1,7 +1,13 @@
 """The port's CABAC engine (hevc_tpu_torch/cabac/rows.py) against the JAX
 package's Pallas kernel in interpret mode and against the Python engine's
-bins, bit for bit (tolerance 0): on random encoder rows, on rows of unequal
-length, and on every substream captured from a small WPP IPP stream."""
+bins, bit for bit (tolerance 0): on random encoder rows, on rows of one bin
+kind, on the shape grid the card tests hold the CUDA kernel to, on rows of
+unequal length, and on every substream captured from a small WPP IPP
+stream; the kernel's step table against the engine's three tables, and the
+chain bound's terms."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +19,11 @@ from hevc_tpu.encoder.generate import synth_frame  # noqa: E402
 from hevc_tpu.tpu.cabac_pallas import (BYPASS, TERMINATE,  # noqa: E402
                                        decode_rows_pallas)
 from hevc_tpu_torch.cabac import rows as cabac  # noqa: E402
+from hevc_tpu_torch.cabac.engine import (RANGE_TAB_LPS,  # noqa: E402
+                                         TRANS_IDX_LPS, TRANS_IDX_MPS)
 from hevc_tpu_torch.decoder import core  # noqa: E402
+
+CPU = torch.device("cpu")
 
 
 def _jax(data, sched, init):
@@ -54,6 +64,100 @@ def test_random_rows_plain_equals_jax_and_encoder():
         assert got[k].tolist() == r.bins, f"row {k} != encoder bins"
     assert np.array_equal(got.numpy(), _jax(data, sched, init))
     assert torch.equal(cabac.decode_rows(data, sched, init), got)
+
+
+@pytest.mark.parametrize("q", range(4))
+def test_step_table_unpacks_to_the_engines_tables(q):
+    """One word a bin: rangeTabLps, the state after an LPS (valMps flipped
+    at pStateIdx 0), the state after an MPS and the renormalisation shift
+    after an LPS, for all 128 states of one range quarter; then the
+    pseudo-states of terminate and bypass bins."""
+    tab = cabac.cabac_step_table(CPU)
+    assert tab.dtype == torch.int32 and tab.shape == (132 * 4,)
+    for s in range(128):
+        w, p, mps = int(tab[s * 4 + q]), s >> 1, s & 1
+        rlps = w & 0xFF
+        assert rlps == RANGE_TAB_LPS[p][q]
+        lps, nxt = (w >> 8) & 0xFF, (w >> 16) & 0xFF
+        assert lps >> 1 == TRANS_IDX_LPS[p] and nxt >> 1 == TRANS_IDX_MPS[p]
+        assert lps & 1 == (1 - mps if p == 0 else mps) and nxt & 1 == mps
+        assert 256 <= rlps << (w >> 24) < 512
+    for s, rlps in ((cabac.TERMINATE_STATE, 2), (cabac.BYPASS_STATE, 0)):
+        assert s >= 128 and s % 2 == 0
+        assert int(tab[s * 4 + q]) == rlps | s << 8 | s << 16
+    assert int(tab[129 * 4 + q]) == int(tab[131 * 4 + q]) == 0
+    # the slots of the pseudo-states lie past every context slot
+    assert cabac.BYPASS & 255 == 255 and cabac.TERMINATE & 255 == 254
+    assert cabac.N_CTX <= cabac.MAX_CTX == 254
+
+
+def test_kernel_constants_mirror_the_cuda_source():
+    path = os.path.join(os.path.dirname(cabac.__file__), os.pardir, "csrc",
+                        "cabac.cu")
+    src = open(path).read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kChunk"]) == cabac.CHUNK
+    assert int(consts["kBlocksPerSm"]) == cabac.BLOCKS_PER_SM
+    assert int(consts["kMaxCtx"]) == cabac.MAX_CTX + 2
+    assert int(consts["kTerminateState"]) == cabac.TERMINATE_STATE
+    assert int(consts["kBypassState"]) == cabac.BYPASS_STATE
+    assert int(re.search(r"kStepWords = (\d+) \* 4;", src).group(1)) * 4 \
+        == cabac.cabac_step_table(CPU).numel()
+
+
+def _all_three_agree(rows, data, sched, init):
+    got = cabac.decode_rows_plain(data, sched, init)
+    for k, r in enumerate(rows):
+        assert got[k, :len(r.bins)].tolist() == r.bins, f"row {k}"
+    assert np.array_equal(got.numpy(), _jax(data, sched, init))
+    assert torch.equal(cabac.decode_rows(data, sched, init), got)
+
+
+@pytest.mark.parametrize("name,mix,kinds", [
+    ("context", (1.0, 0.0), {0}), ("bypass", (0.0, 1.0), {BYPASS}),
+    ("terminates", (0.4, 0.4), {0, BYPASS, TERMINATE}),
+    ("mixed", (0.70, 0.25), {0, BYPASS, TERMINATE})])
+def test_rows_of_one_kind_plain_equals_jax_and_encoder(name, mix, kinds):
+    rng = np.random.default_rng(len(name))
+    rows = cabac.random_rows(rng, 3, 150, init_types=(0, 1, 2), mix=mix)
+    data, sched, init, _ = cabac.pack_rows(rows)
+    assert {min(int(v), 0) for v in sched.unique()} == kinds
+    if name == "terminates":
+        assert int((sched == TERMINATE).sum()) > 3 * 150 // 10
+    _all_three_agree(rows, data, sched, init)
+
+
+@pytest.mark.parametrize("R,n_bins", cabac.SHAPE_GRID)
+def test_shape_grid_plain_equals_jax_and_encoder(R, n_bins):
+    """The grid tests/test_torch_cuda.py holds the CUDA kernel to, so that
+    its oracle, the plain version, is itself held to the JAX kernel."""
+    rows, data, sched, init, lens = cabac.ragged_rows(R, n_bins)
+    assert sched.shape == (R, n_bins) and data.shape[1] % 16 == 1
+    assert R < 3 or int(lens.min()) < n_bins
+    _all_three_agree(rows, data, sched, init)
+
+
+def test_chain_bound_counts_the_longest_rows_bins():
+    sched = torch.tensor([[0, 5, BYPASS, TERMINATE],
+                          [3, 3, 3, BYPASS],
+                          [BYPASS, BYPASS, BYPASS, BYPASS]], dtype=torch.int32)
+    b = cabac.chain_bound(sched, smem_clocks=30.0, alu_clocks=5.0,
+                          clock_mhz=2000.0, resident_rows=4)
+    # a context bin: 1 round trip and 9 instructions; bypass 3; terminate 6
+    assert cabac.CHAIN == {"context": (1, 9), "bypass": (0, 3),
+                           "terminate": (0, 6)}
+    assert b["bins"] == (3, 1, 0) and b["waves"] == 1
+    assert b["clocks"] == 3 * (30 + 9 * 5) + 3 * 5
+    assert b["ms"] == pytest.approx(b["clocks"] / 2000.0e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("R,resident,waves", [(4, 4, 1), (5, 4, 2),
+                                              (9, 4, 3)])
+def test_chain_bound_takes_a_wave_per_resident_set(R, resident, waves):
+    sched = torch.full((R, 7), BYPASS, dtype=torch.int32)
+    b = cabac.chain_bound(sched, 30.0, 5.0, 1000.0, resident)
+    assert b["waves"] == waves and b["bins"] == (0, 7, 0)
+    assert b["ms"] == pytest.approx(waves * 7 * 15 / 1000.0e3, rel=1e-12)
 
 
 def test_unequal_rows_padded_plain_equals_jax():

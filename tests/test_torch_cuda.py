@@ -280,6 +280,104 @@ def test_cabac_kernel_matches_plain_on_card(card, R, lengths):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,n_bins", [(1, 1), (3, 127), (5, 129), (33, 259)])
+def test_cabac_kernel_matches_plain_on_the_shape_grid_on_card(card, R,
+                                                              n_bins):
+    """Around the kernel's chunk of 128 bins, with rows that start and end
+    off every 16-byte boundary, the padding included; and a prefix of the
+    schedule (a row stride that is not the bin count)."""
+    from hevc_tpu_torch.cabac import rows as cabac
+    assert (R, n_bins) in cabac.SHAPE_GRID
+    rows, data, sched, init, lens = cabac.ragged_rows(R, n_bins)
+    data, sched, init = data.to(card), sched.to(card), init.to(card)
+    got = cabac.decode_rows(data, sched, init)
+    torch.cuda.synchronize()
+    want = cabac.decode_rows_plain(data, sched, init)
+    assert torch.equal(got, want)
+    for k, r in enumerate(rows):
+        assert got[k, :len(r.bins)].tolist() == r.bins, f"row {k}"
+    n = max(1, n_bins - 2)
+    assert torch.equal(cabac.decode_rows(data, sched, init, n), want[:, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("context_share", [1.0, 0.6])
+def test_cabac_kernel_matches_plain_on_arbitrary_input_on_card(
+        card, context_share):
+    """Random bytes under a random schedule, which no encoder wrote: the
+    range leaves [256, 510], a bin eats up to 8 bits (the bitstream ring
+    at its fastest), terminate bins of 1 come mid-row and the offset wraps
+    through 2^31.  The plain version defines the bins there too."""
+    from hevc_tpu_torch.cabac import rows as cabac
+    rng = np.random.default_rng(int(context_share * 10))
+    R, n_bins, n_bytes = 6, 3001, 2999
+    kind = rng.random((R, n_bins))
+    sched = np.where(kind < context_share,
+                     rng.integers(0, cabac.N_CTX, (R, n_bins)),
+                     np.where(kind < 0.9, cabac.BYPASS, cabac.TERMINATE))
+    data = rng.integers(0, 256, (R, n_bytes))
+    init = rng.integers(0, 126, (R, cabac.N_CTX))
+    data, sched, init = (torch.from_numpy(a.astype(np.int32)).to(card)
+                         for a in (data, sched, init))
+    got = cabac.decode_rows(data, sched, init)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cabac.decode_rows_plain(data, sched, init))
+
+
+@pytest.mark.cuda
+def test_cabac_kernel_walks_more_rows_than_the_card_holds_on_card(card):
+    """One row more than the resident blocks: the grid-stride loop."""
+    from hevc_tpu_torch import cabac_cuda
+    from hevc_tpu_torch.cabac import rows as cabac
+    rows = cabac.random_rows(np.random.default_rng(8), 97, 150,
+                             init_types=(0, 1, 2))
+    R = cabac_cuda.resident_rows(card) + 1
+    assert R == 132 * cabac.BLOCKS_PER_SM + 1 or \
+        torch.cuda.get_device_properties(card).multi_processor_count != 132
+    rows = [rows[k % 97] for k in range(R)]
+    data, sched, init, _ = (t.to(card) for t in cabac.pack_rows(rows))
+    got = cabac.decode_rows(data, sched, init)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cabac.decode_rows_plain(data, sched, init))
+    assert got[R - 1].tolist() == rows[R - 1].bins
+
+
+@pytest.mark.cuda
+def test_tma_window_encodes_once_per_plane_and_box_on_card(card):
+    from hevc_tpu_torch import probes
+    plane = torch.arange(512 * 1408, dtype=torch.int32,
+                         device=card).reshape(512, 1408)
+    other = plane.clone()
+    probes.clear_tensor_maps()
+    before = dict(build.launches)
+    for oy, ox in ((16, 256), (13, 37), (0, 0), (504, 1280), (16, 256)):
+        got = probes.tma_window(plane, (8, 128), (oy, ox), False)
+        assert torch.equal(got, plane[oy:oy + 8, ox:ox + 128])
+    n = {k: build.launches[k] - before[k] for k in ("tma_window",
+                                                     "tma_encode")}
+    assert n == {"tma_window": 5, "tma_encode": 1}
+    probes.tma_window(plane, (16, 32), (13, 37), False)   # another box
+    probes.tma_window(other, (8, 128), (16, 256), False)  # another plane
+    torch.cuda.synchronize()
+    assert build.launches["tma_encode"] - before["tma_encode"] == 3
+
+
+@pytest.mark.cuda
+def test_a_refused_box_raises_and_is_not_cached_on_card(card):
+    from hevc_tpu_torch import probes
+    plane = torch.zeros((512, 1408), dtype=torch.int32, device=card)
+    probes.clear_tensor_maps()
+    before = dict(build.launches)
+    for _ in range(2):      # refused again: the refusal was not kept
+        with pytest.raises(probes.TmaRejected, match="CUresult 1"):
+            probes.tma_window(plane, (40, 39), (13, 37), False)
+    assert probes.tensor_map_key(plane, (40, 39)) not in probes._TENSOR_MAPS
+    assert {k: build.launches[k] - before[k]
+            for k in ("tma_window", "tma_encode")} == {"tma_window": 0,
+                                                       "tma_encode": 0}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", [0, 1])
 @pytest.mark.parametrize("shift", [(3, 37), (-5, 300)])
 def test_tile_shift_kernel_matches_plain_on_card(card, mode, shift):

@@ -1,7 +1,8 @@
 """The plain versions of the probe kernels (hevc_tpu_torch/probes.py)
 against what the TPU probe scripts expect, bit for bit: np.roll and the
 slice of tools/probe_roll.py, the window reads and writes of
-tools/probe_dma.py, and the block copy of probe_roll.py's pipeline."""
+tools/probe_dma.py, and the block copy of probe_roll.py's pipeline; and the
+key of the tensor-map cache, which no CPU tensor reaches."""
 import numpy as np
 import pytest
 import torch
@@ -56,6 +57,49 @@ def test_window_plain_equals_probe_dma(case):
 def test_window_outside_the_plane_is_refused(shape, origin):
     with pytest.raises(ValueError, match="inside"):
         probes.tma_window(torch.from_numpy(PLANE), shape, origin, False)
+
+
+def test_tensor_map_key_differs_by_pointer():
+    a = torch.zeros((64, 128), dtype=torch.int32)
+    b = torch.zeros((64, 128), dtype=torch.int32)
+    assert probes.tensor_map_key(a, (8, 128)) == \
+        probes.tensor_map_key(a.view(64, 128), (8, 128))
+    assert probes.tensor_map_key(a, (8, 128)) != \
+        probes.tensor_map_key(b, (8, 128))
+    # a plane that starts inside another one is another plane
+    assert probes.tensor_map_key(a, (8, 128)) != \
+        probes.tensor_map_key(a[1:], (8, 128))
+
+
+def test_tensor_map_key_differs_by_plane_shape():
+    a = torch.zeros((64, 128), dtype=torch.int32)
+    assert a.view(128, 64).data_ptr() == a.data_ptr()
+    assert probes.tensor_map_key(a, (8, 64)) != \
+        probes.tensor_map_key(a.view(128, 64), (8, 64))
+    assert probes.tensor_map_key(a, (8, 64)) != \
+        probes.tensor_map_key(a[:32], (8, 64))
+
+
+@pytest.mark.parametrize("box", [(8, 64), (16, 128), (128, 8)])
+def test_tensor_map_key_differs_by_box(box):
+    a = torch.zeros((64, 128), dtype=torch.int32)
+    assert probes.tensor_map_key(a, (8, 128)) != probes.tensor_map_key(a, box)
+    assert probes.tensor_map_key(a, box) == probes.tensor_map_key(a, box)
+
+
+def test_cpu_tensor_never_reaches_the_tensor_map_cache():
+    from hevc_tpu_torch import build
+    before = (dict(probes._TENSOR_MAPS), build.launches["tma_encode"],
+              build.launches["tma_window"], build.launches["tma_pipe"])
+    plane = torch.from_numpy(PLANE.copy())
+    for case in probes.WINDOW_CASES:
+        probes.tma_window(plane, case.shape, case.origin, case.write)
+    probes.tma_pipe(torch.zeros((1024, 1536), dtype=torch.int32),
+                    probes.pipe_origins()[:4])
+    with pytest.raises(ValueError, match="lies on cpu"):
+        probes.tensor_map(plane, (8, 128))
+    assert (dict(probes._TENSOR_MAPS), build.launches["tma_encode"],
+            build.launches["tma_window"], build.launches["tma_pipe"]) == before
 
 
 def test_pipe_origins_follow_probe_roll():
