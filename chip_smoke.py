@@ -37,16 +37,17 @@
    latencies ``chain_latency_kernel`` measures and the card's highest SM
    clock);
 6. the probe path: with the launch counts at 0, runs
-   ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the five
-   TMA window cases of ``tools/probe_dma.py``, the 2,880-block TMA
-   pipeline), checks each kernel against its plain version and the
-   window outcomes (four OK, the two at an unaligned inner offset as two
-   aligned boxes while one box there faults in a child process, and the
+   ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the roll of
+   an 8K plane, the five TMA window cases of ``tools/probe_dma.py``, the
+   2,880-block TMA pipeline and the pipeline over two 8192 x 8192
+   planes), checks each kernel against its plain version and the window
+   outcomes (four OK, the two at an unaligned inner offset loaded from the
+   aligned x while one box there faults in a child process, and the
    (40, 39) box refused by the tensor-map encoder), checks that a tensor
    map was encoded once per plane and box however many launches used it,
    and times each kernel beside its plain version and the one PyTorch
    call for the same function (by CUDA events here, and by
-   ``torch.profiler`` at the end);
+   ``torch.profiler`` at the end), and each wrapper's host cost a call;
 7. prints the kernel table as JSON: per kernel its launches on the
    counted run, its error against the plain version, the kernel's, the
    plain version's and (where one PyTorch call computes the same
@@ -585,9 +586,11 @@ WINDOW_OUTCOMES = {
     "aligned": "OK", "16x32 odd": ONE_BOX_FAULT}
 
 
-def phase_probes(dev):
+def phase_probes(dev, smi):
     """The probe path; returns {kernel: (launches, max_abs_err, ms,
-    plain_ms, library_ms, bound)}."""
+    plain_ms, library_ms, bound)}: tile_shift and tma_window at the
+    probes' shapes, tma_pipe on the planes larger than L2 (at the probe's
+    plane both stay in L2, where device memory's rate bounds nothing)."""
     import torch
     from hevc_tpu_torch import build, probes
     build.reset_launches()
@@ -599,42 +602,52 @@ def phase_probes(dev):
     assert set(res["tile_shift"].values()) == {0}, res["tile_shift"]
     assert res["tma_window"] == WINDOW_OUTCOMES, res["tma_window"]
     assert res["tma_pipe"] == 0, "tma_pipe_kernel != plain"
-    # a tensor map per plane and box: the three boxes the encoder took of
-    # the one window plane (its refusal of the fourth is not kept), and
-    # the pipe's source and destination
-    boxes = {c.shape for c in probes.WINDOW_CASES} - {(40, 39)}
+    # a tensor map per plane and box: on the one window plane each box the
+    # encoder took (its refusal of (40, 39) is not kept) and each box of the
+    # plans (bands of 4 rows: (4, 128), (4, 132), (4, 36)); the two pipes'
+    # sources and destinations
+    taken = [c for c in probes.WINDOW_CASES if c.shape != (40, 39)]
+    boxes = {c.shape for c in taken} | {
+        probes.window_plan(c.shape, c.origin).box for c in taken}
     encodes = build.launches["tma_encode"]
-    assert counts["tma_window"] == 4 and encodes == len(boxes) + 2 == 5, \
+    assert counts["tma_window"] == 4 and counts["tile_shift"] == 3 \
+        and counts["tma_pipe"] == 2 and encodes == len(boxes) + 4 == 10, \
         f"{encodes} tensor maps encoded for {counts}"
     probes.clear_tensor_maps()
-    times = probes.time_probes(dev)
+    times, host = probes.time_probes(dev)
     timed = {k: build.launches[k] - counts[k] for k in probes.PROBES}
     encodes = build.launches["tma_encode"] - encodes
     assert min(timed.values()) >= 20 and timed["tma_window"] >= 40 \
-        and encodes == 3, \
+        and encodes == 6, \
         f"{encodes} tensor maps encoded for the timed launches {timed}"
-    log(f"tensor maps: 5 encoded on the probe path, {encodes} for the timed "
-        f"launches {timed} (one plane and box each: the window's, the "
-        "pipe's source and destination)")
-    ms, plain_ms = times["tma_pipe"]
-    log(f"tma pipe: {ms} ms per launch, {ms / probes.PIPE_BLOCKS * 1e3} "
-        f"us/block, {probes.PIPE_BYTES / ms / 1e6} GB/s "
-        f"({probes.PIPE_BYTES} B); plain index copy {plain_ms} ms")
-    log(f"probe times, ms (kernel, plain; tma_window is the bare launch, "
-        f"tma_window_call the entry point): {times}; launch counts {counts}")
+    log(f"tensor maps: 10 encoded on the probe path, {encodes} for the "
+        f"timed launches {timed} (one plane and box each: the window's "
+        "(40, 128) box and its plan's (4, 132), the two pipes' sources and "
+        "destinations)")
+    big_org = probes.pipe_tiling(probes.PIPE_BIG_PLANE)
+    for k, org in (("tma_pipe", probes.pipe_origins()),
+                   ("tma_pipe_big", big_org)):
+        ms, plain_ms = times[k]
+        log(f"{k}: {ms} ms per launch, {ms / org.shape[0] * 1e3} us/block, "
+            f"{probes.pipe_bytes(org) / ms / 1e6} GB/s "
+            f"({probes.pipe_bytes(org)} B); plain index copy {plain_ms} ms "
+            f"({smi})")
+    log(f"probe times, ms (kernel, plain; CUDA events; tma_window is the "
+        f"bare launch, tma_window_call the entry point): {times} ({smi}); "
+        f"launch counts {counts}")
+    log(f"host us a call (time.perf_counter over 1,000 calls, no sync): "
+        f"{host} ({smi})")
 
     # one PyTorch call for the same function on the same inputs, and the
     # kernels' launches to trace with the profiler at the end
-    tile = torch.arange(probes.TILE[0] * probes.TILE[1], dtype=torch.int32,
-                        device=dev).reshape(probes.TILE)
+    tile = probes.ramp(probes.TILE, dev)
+    big = probes.ramp(probes.TILE_8K, dev)
     shift = torch.tensor(probes.SHIFT, dtype=torch.int32, device=dev)
-    plane = torch.arange(probes.PLANE[0] * probes.PLANE[1],
-                         dtype=torch.int32, device=dev).reshape(probes.PLANE)
+    plane = probes.ramp(probes.PLANE, dev)
     case = probes.WINDOW_CASES[1]
     (wh, ww), (oy, ox) = case.shape, case.origin
-    x = torch.arange(probes.PIPE_PLANE[0] * probes.PIPE_PLANE[1],
-                     dtype=torch.int32, device=dev).reshape(probes.PIPE_PLANE)
-    org = probes.pipe_origins().to(dev)
+    x = probes.ramp(probes.PIPE_BIG_PLANE, dev)
+    org = big_org.to(dev)
     o = org.long()
     bh, bw = probes.PIPE_BOX
     ys = (o[:, 0, None] + torch.arange(bh, device=dev))[:, :, None]
@@ -645,28 +658,44 @@ def phase_probes(dev):
         out[ys, xs] = x[ys, xs]
 
     calls = {"tile_shift": lambda: torch.roll(tile, probes.SHIFT, (0, 1)),
+             "tile_shift 4320x7680":
+                 lambda: torch.roll(big, probes.SHIFT, (0, 1)),
              "tma_window": lambda: plane[oy:oy + wh, ox:ox + ww].clone(),
              "tma_pipe": index_copy}
-    library = {k: cuda_ms(fn, iters=5 if k == "tma_pipe" else 20)
+    library = {k: cuda_ms(fn, iters=3 if k == "tma_pipe" else 20)
                for k, fn in calls.items()}
     PROFILE_LIBRARY.extend(calls.items())
     pout = torch.zeros_like(x)
+    plan = probes.window_plan(case.shape, case.origin)
+    tmap = probes.tensor_map(plane, plan.box)
+    wout = torch.empty(case.shape, dtype=torch.int32, device=dev)
     PROFILE.extend([
         ("tile_shift_kernel",
          lambda: probes.tile_shift(tile, shift, probes.ROLL)),
+        ("tile_shift_kernel 4320x7680",
+         lambda: probes.tile_shift(big, shift, probes.ROLL)),
         ("tma_window_kernel",
-         lambda: probes.tma_window(plane, case.shape, case.origin, False)),
-        ("tma_pipe_kernel", lambda: probes.launch_tma_pipe(x, org, pout))])
-    log(f"probe library calls, ms (CUDA events): {library}")
+         lambda: probes.launch_tma_window(tmap, plan, False, wout)),
+        ("tma_pipe_kernel 8192x8192",
+         lambda: probes.launch_tma_pipe(x, org, pout))])
+    log(f"probe library calls, ms (CUDA events): {library} ({smi})")
     # bytes each function must move: its input read once, its output
-    # written once (the pipe's PIPE_BYTES count both, plus the origins)
+    # written once (the pipe's count both, plus the origins)
     work = {"tile_shift": 2 * tile.numel() * 4,
+            "tile_shift 4320x7680": 2 * big.numel() * 4,
             "tma_window": 2 * wh * ww * 4,
-            "tma_pipe": probes.PIPE_BYTES + org.numel() * 4}
+            "tma_pipe": probes.pipe_bytes(big_org) + org.numel() * 4}
+    bounds = {k: bound_ms(v, 0) for k, v in work.items()}
+    ms8k = times["tile_shift_8k"][0]
+    log(f"tile_shift 4320x7680: {ms8k} ms, bytes bound "
+        f"{bounds['tile_shift 4320x7680'][0]} ms "
+        f"({bounds['tile_shift 4320x7680'][0] / ms8k:.3f} of it), torch.roll"
+        f" {library['tile_shift 4320x7680']} ms ({smi})")
     errs = {"tile_shift": max(res["tile_shift"].values()),
             "tma_window": res["tma_window_err"], "tma_pipe": res["tma_pipe"]}
+    times["tma_pipe"] = times["tma_pipe_big"]
     return {k: (counts[k], errs[k]) + times[k]
-            + (library[k], bound_ms(work[k], 0)) for k in counts}
+            + (library[k], bounds[k]) for k in counts}
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
@@ -788,19 +817,20 @@ def main():
         "cabac_kernel", "hevc_tpu_torch/csrc/cabac.cu",
         "hevc_tpu/tpu/cabac_pallas.py:49", n, err, ms, plain_ms, None,
         bound))
-    for name, row in phase_probes(dev).items():
+    for name, row in phase_probes(dev, smi).items():
         kernels.append(kernel_row(
             f"{name}_kernel", "hevc_tpu_torch/csrc/probes.cu",
             {"tile_shift": "tools/probe_roll.py:34",
              "tma_window": "tools/probe_dma.py:18",
              "tma_pipe": "tools/probe_roll.py:79"}[name], *row))
-    device = {name: profiler_ms(fn, name, iters=5) for name, fn in PROFILE}
+    device = {name: profiler_ms(fn, name.split()[0], iters=5)
+              for name, fn in PROFILE}
     log(f"device ms per launch (torch.profiler, after every other phase): "
-        f"{device}")
+        f"{device} ({smi})")
     library = {name: profiler_ms(fn, None, iters=5)
                for name, fn in PROFILE_LIBRARY}
     log(f"device ms of the probes' library calls (torch.profiler, every "
-        f"kernel of the call): {library}")
+        f"kernel of the call): {library} ({smi})")
     blocked = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "hevc_tpu"))
     assert not blocked, f"the port imported {blocked}"

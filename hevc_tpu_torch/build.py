@@ -37,6 +37,11 @@ launches = dict.fromkeys(("mc", "resid_add", "cabac", "tile_shift",
 
 _lock = threading.Lock()
 _lib = None
+# the current stream's handle as an int, and the current device's index,
+# without building a Python object (None in a build of torch without CUDA,
+# where no launch happens)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def reset_launches() -> None:
@@ -90,8 +95,11 @@ def build(verbose: bool = False) -> str:
 
 
 def load() -> C.CDLL:
-    """The kernel library, built and bound on first call."""
+    """The kernel library, built and bound on first call (the lock is taken
+    only until then: a launch pays for no lock)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = C.CDLL(build())
@@ -109,12 +117,14 @@ def load() -> C.CDLL:
             lib.hevc_cabac_resident_rows.restype = i
             lib.hevc_chain_latency_launch.argtypes = [i, i, i, p, p]
             lib.hevc_chain_latency_launch.restype = i
-            lib.hevc_tile_shift_launch.argtypes = [p, i, i, p, i, i, i, p, p]
+            # the launch's parameters (probes.ShiftParams, WindowParams)
+            # by their address
+            lib.hevc_tile_shift_launch.argtypes = [p, p, p, p, p]
             lib.hevc_tile_shift_launch.restype = i
             # a tensor map is 128 bytes of the caller's (a ctypes array)
             lib.hevc_tma_encode.argtypes = [p, p, i, i, i, i, ip]
             lib.hevc_tma_encode.restype = i
-            lib.hevc_tma_window_launch.argtypes = [p, i, i, i, i, i, i, p, p]
+            lib.hevc_tma_window_launch.argtypes = [p, p, i, p, p]
             lib.hevc_tma_window_launch.restype = i
             lib.hevc_tma_pipe_launch.argtypes = [p, p, p, i, i, i, p]
             lib.hevc_tma_pipe_launch.restype = i
@@ -124,6 +134,22 @@ def load() -> C.CDLL:
             lib.hevc_cuda_error_string.restype = C.c_char_p
             _lib = lib
         return _lib
+
+
+def stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, without building a
+    ``torch.cuda.Stream``."""
+    return _raw_stream(dev.index)
+
+
+def launch(dev, fn, *args) -> int:
+    """``fn(*args)`` with ``dev`` the current CUDA device: a launcher's
+    call, with no device guard (two device switches) when ``dev`` already
+    is the current device."""
+    if dev.index == _get_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def check_tensor(name, t, dim, device) -> None:

@@ -21,9 +21,25 @@
 #include <stdint.h>
 #include <string.h>
 
+// tile_shift_kernel's launch for one tile shape and mode
+// (probes.ShiftParams): the (h, w) tile, the (oh, ow) output and the grid
+struct ShiftParams {
+  int h, w, mode, oh, ow, blocks;
+};
+
+// tma_window_kernel's plan for one window (probes.WindowParams): the
+// window's shape and origin, the columns of the box before the window, and
+// the box (bh, bw) that each of the `bands` CTAs loads
+struct WindowParams {
+  int wh, ww, oy, ox, lead, bh, bw, bands;
+};
+
 namespace {
 
-constexpr int kRing = 4;  // stages of tma_pipe_kernel's ring
+constexpr int kRing = 4;            // stages of tma_pipe_kernel's ring
+constexpr int kShiftThreads = 128;  // tile_shift_kernel: 16 B of output each
+constexpr int kWindowRows = 4;      // tma_window_kernel: a warp a row, 4 rows
+constexpr int kWindowThreads = 32 * kWindowRows;
 
 enum { kStageEncode = 1, kStageEntry = 3 };
 
@@ -93,91 +109,160 @@ __device__ __forceinline__ void tma_store_wait() {
 }
 
 // Replaces tools/probe_roll.py:dynroll_kern (mode 0) and :dynslice_kern
-// (mode 1).  One CTA stages the (h, w) tile in shared memory and writes
-// it rolled by (sy, sx) or the (oh, ow) window at (sy, sx), the start
-// taken as jax.lax.dynamic_slice takes it (a negative one counts from the
-// end, then it is clamped into the tile); the shifts are read from a
-// device tensor, the counterpart of scalar prefetch.  Bound: one read
-// and one write of the tile; the gather out of shared memory takes any
-// offset, where Mosaic's roll wanted static or aligned ones.
-__global__ void tile_shift_kernel(const int32_t* __restrict__ x, int h, int w,
-                                  const int32_t* __restrict__ shift, int mode,
-                                  int oh, int ow, int32_t* __restrict__ out) {
-  extern __shared__ int32_t tile[];
-  for (int k = threadIdx.x; k < h * w; k += blockDim.x) tile[k] = x[k];
-  __syncthreads();
-  int sy = shift[0], sx = shift[1];
-  if (mode == 0) {
-    sy = ((sy % h) + h) % h;
-    sx = ((sx % w) + w) % w;
-    for (int k = threadIdx.x; k < h * w; k += blockDim.x) {
-      const int y = k / w, xx = k - y * w;
-      const int yy = y - sy < 0 ? y - sy + h : y - sy;
-      const int xs = xx - sx < 0 ? xx - sx + w : xx - sx;
-      out[k] = tile[yy * w + xs];
-    }
+// (mode 1): the (h, w) tile rolled by (sy, sx), or its (oh, ow) window at
+// (sy, sx) with the start taken as jax.lax.dynamic_slice takes it (a
+// negative one counts from the end, then it is clamped into the tile).
+// The shifts are read from a device tensor, the counterpart of scalar
+// prefetch.  Both modes are one gather: out(y, x) = x((y + oy) mod h,
+// (x + ox) mod w), with (oy, ox) the shift negated modulo the tile (roll)
+// or the clamped start (slice, which never wraps).
+//
+// Bound: one read and one write of each element, so device memory's rate
+// once the tile outgrows L2, and a launch and two dependent loads (the
+// shift, then the tile) at the probe's 48 KB.  Nothing goes through shared
+// memory and the tile has no size limit: each thread owns one 16-byte
+// segment of the flat output (a 4-int32 piece of one row when ow is a
+// multiple of 4; across two rows otherwise, and a scalar tail past the
+// last whole segment), so a (48, 256) roll runs 24 CTAs of 128 threads.
+// A thread reduces the shifts and finds its row once, then walks its four
+// source columns with a compare each (the wrap point); the scalar loads of
+// a warp cover neighbouring addresses and coalesce (two aligned 16-byte
+// loads and a shift instead were slower at the probe's tile and within a
+// few percent at the 8K plane).  kShiftThreads and the grid are mirrored
+// by probes.tile_shift_grid and probes.tile_shift_sources.
+__global__ void __launch_bounds__(kShiftThreads)
+tile_shift_kernel(const int32_t* __restrict__ x, int h, int w,
+                  const int32_t* __restrict__ shift, int mode, int oh,
+                  int ow, int32_t* __restrict__ out) {
+  const int n = oh * ow;
+  const int e0 = 4 * (blockIdx.x * kShiftThreads + threadIdx.x);
+  if (e0 >= n) return;
+  int oy = shift[0], ox = shift[1];
+  if (mode == 0) {  // roll: source = destination - shift, modulo the tile
+    oy = -(oy % h);
+    ox = -(ox % w);
+    oy += oy < 0 ? h : 0;
+    ox += ox < 0 ? w : 0;
   } else {
-    sy = min(max(sy < 0 ? sy + h : sy, 0), h - oh);
-    sx = min(max(sx < 0 ? sx + w : sx, 0), w - ow);
-    for (int k = threadIdx.x; k < oh * ow; k += blockDim.x) {
-      const int y = k / ow, xx = k - y * ow;
-      out[k] = tile[(sy + y) * w + sx + xx];
+    oy = min(max(oy < 0 ? oy + h : oy, 0), h - oh);
+    ox = min(max(ox < 0 ? ox + w : ox, 0), w - ow);
+  }
+  int y = e0 / ow, c = e0 - y * ow;
+  int sr = y + oy, sc = c + ox;
+  sr -= sr >= h ? h : 0;
+  sc -= sc >= w ? w : 0;
+  const int cnt = min(4, n - e0);
+  int v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < cnt) v[j] = __ldg(x + (size_t)sr * w + sc);
+    if (++c == ow) {  // the next output row
+      c = 0;
+      sr = sr + 1 == h ? 0 : sr + 1;
+      sc = ox;
+    } else {
+      sc = sc + 1 == w ? 0 : sc + 1;
     }
+  }
+  if (cnt == 4) {
+    *reinterpret_cast<int4*>(out + e0) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int j = 0; j < cnt; ++j) out[e0 + j] = v[j];
+  }
+}
+
+// the four words that start `lead` words into the aligned pair (a, b)
+__device__ __forceinline__ int4 words_from(int4 a, int4 b, int lead) {
+  switch (lead) {
+    case 0: return a;
+    case 1: return make_int4(a.y, a.z, a.w, b.x);
+    case 2: return make_int4(a.z, a.w, b.x, b.y);
+    default: return make_int4(a.w, b.x, b.y, b.z);
   }
 }
 
 // Replaces the kernels of tools/probe_dma.py:try_case (read) and
 // :try_write (write): the (wh, ww) window at (oy, ox) of a plane, moved by
-// TMA with the tensor map's box equal to the window.  With `split` 0 it
-// is one box at (oy, ox), whatever ox is: the probe's question.  A TMA
-// copy takes any row but faults (illegal instruction, a sticky error) when
-// its inner coordinate is not 16-byte aligned, so with `split` 1 a window
-// whose ox is not a multiple of 4 int32 moves as two boxes at the aligned
-// x0 = ox & ~3 and x0 + ww (ww * 4 is a multiple of 16, or the encoder
-// refused the box), and the threads shift it in shared memory.  Read: TMA
-// loads complete on an mbarrier with expect-tx, the threads copy the
-// window out.  Write:
-// the threads set the window to 7 in shared memory (after loading the
-// boxes when they reach past it), fence it to the async proxy, and TMA
-// stores write the boxes into the plane in place.  Bound: one or two
-// boxes, so the latency of the bulk copies.
-__global__ void tma_window_kernel(const __grid_constant__ CUtensorMap map,
-                                  int wh, int ww, int oy, int ox, int split,
-                                  int write, int32_t* __restrict__ out) {
+// TMA.  A TMA copy takes any row but faults (illegal instruction, a sticky
+// error) when its inner coordinate is not 16-byte aligned.  The plan
+// (WindowParams, mirrored by probes.window_plan and probes.window_boxes):
+// the window's rows split into bands of bh (4 rows, probes.WINDOW_BAND:
+// taller bands, with fewer CTAs, and two boxes of ww in place of one of
+// ww + 4 were slower; python -m hevc_tpu_torch.probes --plans times each),
+// one CTA a band, each with its own mbarrier and its own (bh, bw) box at row oy + min(b * bh, wh - bh)
+// (the last band's box ends at the window's last row and may overlap the
+// band before it); the box starts at the aligned x0 = ox - lead.  With
+// lead 0 the box is the band's part of the window (bw = ww).  Otherwise
+// one box of bw = ww + 4 columns holds it (ww * 4 is a multiple of 16, or
+// the encoder refused the window's box, so (ww + 4) * 4 is too), or, for
+// ww + 4 > 256 (a box's largest extent), two boxes of ww at x0 and x0 + 4.
+// Every box lies inside the plane.  With lead 0 and a box at an unaligned
+// ox (probes.tma_window with split=False), the load faults: the probe's
+// question.  Read: the loads complete on the band's mbarrier with
+// expect-tx, then each thread moves 16-byte segments of a window row out
+// of shared memory (two aligned 16-byte shared loads and a shift by lead)
+// into `out` with one 16-byte store, no division.  Write: the threads set
+// the window's part of the boxes to 7 in shared memory (after loading them
+// when they reach past the window), fence it to the async proxy, and TMA
+// stores write the boxes back in place; overlapping boxes carry equal
+// values.  Bound: a launch and one bulk-copy round trip a band, in
+// parallel over the bands; the bytes (2 * wh * ww * 4, 40 KB for the
+// probe's (40, 128) read) would take 0.012 us at device memory's rate.
+__global__ void __launch_bounds__(kWindowThreads)
+tma_window_kernel(const __grid_constant__ CUtensorMap map,
+                  const WindowParams p, int write, int32_t* __restrict__ out) {
   extern __shared__ uint8_t raw[];
   __shared__ __align__(8) uint64_t bar;
-  int32_t* boxes = reinterpret_cast<int32_t*>(align128(raw));
-  const int n = wh * ww, lead = split ? ox & 3 : 0, x0 = ox - lead;
-  const int nbox = lead ? 2 : 1;
-  // element (y, x) of the window: box 0 holds columns [x0, x0 + ww),
-  // box 1 the next ww
-  auto at = [&](int k) -> int32_t& {
-    const int y = k / ww, c = k - y * ww + lead, b = c >= ww;
-    return boxes[b * n + y * ww + c - b * ww];
-  };
-  if (threadIdx.x == 0) {
+  const int nbox = p.lead && p.bw == p.ww ? 2 : 1;
+  const int box_words = (p.bh * p.bw + 31) & ~31;  // 128-byte aligned boxes
+  int32_t* box0 = reinterpret_cast<int32_t*>(align128(raw));
+  int32_t* box1 = box0 + box_words;
+  const int r0 = blockIdx.x * p.bh, r1 = min(r0 + p.bh, p.wh);
+  const int ys = min(r0, p.wh - p.bh);  // the box's first window row
+  const int x0 = p.ox - p.lead;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const bool load = !write || p.lead;
+  if (tx == 0 && ty == 0) {
     mbar_init(&bar, 1);
     mbar_init_fence();
+    if (load) {
+      mbar_expect_tx(&bar, (uint32_t)(nbox * p.bh * p.bw) * 4);
+      tma_load(box0, &map, &bar, x0, p.oy + ys);
+      if (nbox == 2) tma_load(box1, &map, &bar, x0 + 4, p.oy + ys);
+    }
   }
   __syncthreads();
-  if (!write || lead) {
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(&bar, (uint32_t)(nbox * n) * 4);
-      for (int b = 0; b < nbox; ++b)
-        tma_load(boxes + b * n, &map, &bar, x0 + b * ww, oy);
-    }
-    mbar_wait(&bar, 0);
-  }
+  if (load) mbar_wait(&bar, 0);
   if (!write) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) out[k] = at(k);
+    const int nseg = p.ww >> 2;
+    for (int r = r0 + ty; r < r1; r += kWindowRows) {
+      const int32_t* row0 = box0 + (r - ys) * p.bw;
+      const int32_t* row1 = box1 + (r - ys) * p.bw - 4;
+      int4* dst = reinterpret_cast<int4*>(out + (size_t)r * p.ww);
+      for (int s = tx; s < nseg; s += 32) {
+        // a segment's words [4s, 4s + 8) of the columns from x0; box 1
+        // holds them from column 4 on
+        const int32_t* src = nbox == 2 && s ? row1 + 4 * s : row0 + 4 * s;
+        const int4 a = *reinterpret_cast<const int4*>(src);
+        dst[s] = p.lead ? words_from(a, *reinterpret_cast<const int4*>(
+                                            src + 4), p.lead)
+                        : a;
+      }
+    }
     return;
   }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) at(k) = 7;
+  for (int b = 0; b < nbox; ++b) {
+    int32_t* box = b ? box1 : box0;
+    const int c0 = p.lead - 4 * b;  // the window's first column in this box
+    for (int r = ty; r < p.bh; r += kWindowRows)
+      for (int j = tx; j < p.bw; j += 32)
+        if (j >= c0 && j < c0 + p.ww) box[r * p.bw + j] = 7;
+  }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < nbox; ++b)
-      tma_store(&map, boxes + b * n, x0 + b * ww, oy);
+  if (tx == 0 && ty == 0) {
+    tma_store(&map, box0, x0, p.oy + ys);
+    if (nbox == 2) tma_store(&map, box1, x0 + 4, p.oy + ys);
     tma_store_wait();
   }
 }
@@ -282,14 +367,13 @@ int set_smem(K kernel, size_t bytes) {
 
 extern "C" {
 
-int hevc_tile_shift_launch(const int32_t* x, int h, int w,
-                           const int32_t* shift, int mode, int oh, int ow,
-                           int32_t* out, void* stream) {
-  const size_t smem = (size_t)h * w * 4;
-  int rc = set_smem(tile_shift_kernel, smem);
-  if (rc) return rc;
-  tile_shift_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(x, h, w, shift,
-                                                           mode, oh, ow, out);
+// `params` from probes.tile_shift_plan: `blocks` CTAs of kShiftThreads
+int hevc_tile_shift_launch(const int32_t* x, const int32_t* shift,
+                           int32_t* out, const ShiftParams* params,
+                           void* stream) {
+  const ShiftParams p = *params;
+  tile_shift_kernel<<<p.blocks, kShiftThreads, 0, (cudaStream_t)stream>>>(
+      x, p.h, p.w, shift, p.mode, p.oh, p.ow, out);
   return (int)cudaGetLastError();
 }
 
@@ -303,15 +387,19 @@ int hevc_tma_encode(void* map, const int32_t* plane, int H, int W, int bh,
   return rc;
 }
 
-int hevc_tma_window_launch(const void* map, int wh, int ww, int oy, int ox,
-                           int split, int write, int32_t* out, void* stream) {
+// `params` is the plan of probes.window_plan; `map` the plane's tensor map
+// with its (bh, bw) box
+int hevc_tma_window_launch(const void* map, const WindowParams* params,
+                           int write, int32_t* out, void* stream) {
   CUtensorMap m;
   memcpy(&m, map, sizeof m);
-  const size_t smem = (size_t)(split && (ox & 3) ? 2 : 1) * wh * ww * 4 + 128;
+  const WindowParams p = *params;
+  const int nbox = p.lead && p.bw == p.ww ? 2 : 1;
+  const size_t smem = (size_t)nbox * ((p.bh * p.bw + 31) & ~31) * 4 + 128;
   const int rc = set_smem(tma_window_kernel, smem);
   if (rc) return rc;
-  tma_window_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(
-      m, wh, ww, oy, ox, split, write, out);
+  tma_window_kernel<<<p.bands, dim3(32, kWindowRows), smem,
+                      (cudaStream_t)stream>>>(m, p, write, out);
   return (int)cudaGetLastError();
 }
 

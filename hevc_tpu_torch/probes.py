@@ -27,9 +27,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes as C
+import functools
 import os
 import subprocess
 import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +49,11 @@ PIPE_PLANE = (1024, 1536)
 PIPE_BOX = (48, 256)
 PIPE_BLOCKS = 2880
 PIPE_RING = 4
-PIPE_BYTES = 2 * PIPE_BLOCKS * PIPE_BOX[0] * PIPE_BOX[1] * 4  # read + write
+# planes larger than the card's 50 MB L2, where device memory bounds a copy:
+# an 8K luma plane as the canvas holds it (int32) for the roll, and two
+# 8192 x 8192 int32 planes (268 MB each) for the pipe, tiled by PIPE_BOX
+TILE_8K = (4320, 7680)
+PIPE_BIG_PLANE = (8192, 8192)
 PROBES = ("tile_shift", "tma_window", "tma_pipe")
 ONE_BOX = "one box: "  # the child's outcome line
 
@@ -146,26 +152,92 @@ def tile_shift_plain(x, shift, mode):
     return x[oy:oy + oh, ox:ox + ow].clone()
 
 
+SHIFT_THREADS = 128  # csrc/probes.cu kShiftThreads
+
+
+def tile_shift_grid(oh, ow):
+    """(CTAs, threads) of ``tile_shift_kernel`` for an (oh, ow) output: a
+    thread for each 16-byte segment of the flat output."""
+    segs = (oh * ow + 3) // 4
+    return (segs + SHIFT_THREADS - 1) // SHIFT_THREADS, SHIFT_THREADS
+
+
+def tile_shift_sources(h, w, shift, mode, oh, ow):
+    """int64 [CTAs * threads, 4]: the flat index into the (h, w) tile that
+    each thread of ``tile_shift_kernel`` reads for each of its four output
+    elements, -1 past the output's end; the kernel's arithmetic, one thread
+    a row of the result (NumPy over the threads)."""
+    blocks, threads = tile_shift_grid(oh, ow)
+    n = oh * ow
+    e0 = 4 * np.arange(blocks * threads, dtype=np.int64)
+    sy, sx = (int(v) for v in shift)
+    if mode == ROLL:
+        oy, ox = -int(np.fmod(sy, h)), -int(np.fmod(sx, w))  # C's %
+        oy, ox = oy + (h if oy < 0 else 0), ox + (w if ox < 0 else 0)
+    else:
+        oy = min(max(sy + h if sy < 0 else sy, 0), h - oh)
+        ox = min(max(sx + w if sx < 0 else sx, 0), w - ow)
+    y = e0 // ow
+    c = e0 - y * ow
+    sr, sc = y + oy, c + ox
+    sr = np.where(sr >= h, sr - h, sr)
+    sc = np.where(sc >= w, sc - w, sc)
+    src = np.full((e0.size, 4), -1, np.int64)
+    for j in range(4):
+        live = e0 + j < n
+        src[live, j] = sr[live] * w + sc[live]
+        c = c + 1
+        row_end = c == ow
+        c = np.where(row_end, 0, c)
+        sr = np.where(row_end, np.where(sr + 1 == h, 0, sr + 1), sr)
+        sc = np.where(row_end, ox, np.where(sc + 1 == w, 0, sc + 1))
+    return src
+
+
+class ShiftParams(C.Structure):
+    """``tile_shift_kernel``'s launch for one tile shape and mode (the
+    struct of the same name in ``csrc/probes.cu``): the (h, w) tile, the
+    (oh, ow) output and ``blocks`` CTAs (``tile_shift_grid``)."""
+    _fields_ = [(k, C.c_int) for k in ("h", "w", "mode", "oh", "ow",
+                                        "blocks")]
+
+
+@functools.lru_cache(maxsize=256)
+def tile_shift_plan(h, w, mode):
+    """The ``ShiftParams`` of a roll (``ROLL``) or ``SLICE_SHAPE`` cut
+    (``SLICE``) of an (h, w) tile (kept: a launch passes the address of the
+    same struct); raises on what the kernel does not take."""
+    if mode not in (ROLL, SLICE):
+        raise ValueError(f"tile_shift: mode {mode}")
+    oh, ow = (h, w) if mode == ROLL else SLICE_SHAPE
+    if not (0 < oh <= h and 0 < ow <= w) or h * w >= 2 ** 31:
+        raise ValueError(f"tile_shift: tile {h}x{w}, window {oh}x{ow}")
+    return ShiftParams(h, w, mode, oh, ow, tile_shift_grid(oh, ow)[0])
+
+
 def tile_shift(x, shift, mode):
     """Roll or cut the int32 tile ``x`` by the int32 [2] ``shift`` that
     lies on the same device."""
-    if mode not in (ROLL, SLICE):
-        raise ValueError(f"tile_shift: mode {mode}")
-    if x.device.type == "cpu":
-        return tile_shift_plain(x, shift, mode)
     dev = x.device
     build.check_tensor("x", x, 2, dev)
     build.check_tensor("shift", shift, 1, dev)
-    h, w = x.shape
-    oh, ow = (h, w) if mode == ROLL else SLICE_SHAPE
-    if shift.numel() != 2 or not (0 < oh <= h and 0 < ow <= w) \
-            or h * w * 4 > 227 * 1024:
-        raise ValueError(f"tile_shift: tile {h}x{w}, window {oh}x{ow}")
-    out = torch.empty((oh, ow), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = build.load().hevc_tile_shift_launch(
-            x.data_ptr(), h, w, shift.data_ptr(), mode, oh, ow,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if shift.numel() != 2:
+        raise ValueError(f"tile_shift: shift {tuple(shift.shape)}")
+    plan = tile_shift_plan(*x.shape, mode)
+    if not x.is_cuda:
+        return tile_shift_plain(x, shift, mode)
+    out = torch.empty_like(x) if mode == ROLL else x.new_empty(SLICE_SHAPE)
+    return launch_tile_shift(x, shift, plan, out)
+
+
+def launch_tile_shift(x, shift, plan, out):
+    """Launch ``tile_shift_kernel`` once with ``plan``
+    (``tile_shift_plan``) into ``out``; nothing is checked here:
+    ``tile_shift`` does."""
+    dev = out.device
+    rc = build.launch(dev, build.load().hevc_tile_shift_launch, x.data_ptr(),
+                      shift.data_ptr(), out.data_ptr(), C.addressof(plan),
+                      build.stream(dev))
     build.launches["tile_shift"] += 1
     build.raise_on(rc, "tile_shift_kernel")
     return out
@@ -195,35 +267,90 @@ def window_plain(plane, shape, origin, write):
     return plane[oy:oy + wh, ox:ox + ww].clone()
 
 
+WINDOW_BAND = 4     # rows of a tma_window_kernel CTA
+MAX_BOX = 256       # a TMA box's largest extent
+
+
+class WindowParams(C.Structure):
+    """``tma_window_kernel``'s plan for one window (the struct of the same
+    name in ``csrc/probes.cu``): the window (wh, ww) at (oy, ox); ``lead``
+    columns of the box before the window, so that the box starts at the
+    aligned ``ox - lead``; the (bh, bw) box each of the ``bands`` CTAs
+    loads."""
+    _fields_ = [(k, C.c_int) for k in ("wh", "ww", "oy", "ox", "lead", "bh",
+                                        "bw", "bands")]
+
+    @property
+    def box(self):
+        return self.bh, self.bw
+
+    @property
+    def boxes(self):
+        """Boxes a CTA moves: two of ww at x0 and x0 + 4 when one of
+        ww + 4 would be wider than a box may be."""
+        return 2 if self.lead and self.bw == self.ww else 1
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(shape, origin, split=True, band=WINDOW_BAND):
+    """The ``WindowParams`` of the ``shape`` window at ``origin`` (kept:
+    a launch passes the address of the same struct).  With ``split``, bands
+    of ``band`` rows, each one box from the aligned x0 (of ww + 4 columns
+    when the window's inner offset is not 16-byte aligned and that fits in
+    a box); without it, one box of the window's shape at the window's own
+    offset, aligned or not."""
+    (wh, ww), (oy, ox) = shape, origin
+    if not split:
+        return WindowParams(wh, ww, oy, ox, 0, wh, ww, 1)
+    lead, bh = ox & 3, min(wh, band)
+    bw = ww + 4 if lead and ww + 4 <= MAX_BOX else ww
+    return WindowParams(wh, ww, oy, ox, lead, bh, bw, -(-wh // bh))
+
+
+def window_boxes(p):
+    """What each CTA of ``tma_window_kernel`` does under plan ``p``: a list
+    of (box row y, box columns x, first window row the box holds, window
+    rows [r0, r1) it reads out), the kernel's arithmetic."""
+    x0 = p.ox - p.lead
+    xs = (x0, x0 + 4) if p.boxes == 2 else (x0,)
+    out = []
+    for b in range(p.bands):
+        r0 = b * p.bh
+        ys = min(r0, p.wh - p.bh)
+        out.append((p.oy + ys, xs, ys, r0, min(r0 + p.bh, p.wh)))
+    return out
+
+
 def tma_window(plane, shape, origin, write, split=True):
     """The ``shape`` window of the int32 plane at ``origin`` moved by TMA:
     the window that was read, or the plane after the in-place write.  With
-    ``split``, a window whose inner offset is not 16-byte aligned moves as
-    two boxes at aligned offsets; without it, as one box at its own offset
-    (``one_box_outcome`` asks what that does).  On the card,
-    raises ``TmaRejected`` when the tensor-map encoder refuses the box
-    (``tensor_map``)."""
+    ``split``, a window whose inner offset is not 16-byte aligned moves in
+    boxes at aligned offsets (``window_plan``); without it, as one box at
+    its own offset (``one_box_outcome`` asks what that does).  On the card,
+    raises ``TmaRejected`` when the tensor-map encoder refuses the
+    window's box (``tensor_map``): that box is encoded first, whatever box
+    the plan loads."""
     if plane.device.type == "cpu":
         return window_plain(plane, shape, origin, write)
     dev = plane.device
     build.check_tensor("plane", plane, 2, dev)
     _check_window(plane, shape, origin)
-    out = (plane if write else
-           torch.empty(shape, dtype=torch.int32, device=dev))
-    return launch_tma_window(tensor_map(plane, shape), shape, origin, split,
-                             write, out)
+    out = plane if write else plane.new_empty(shape)
+    plan = window_plan(tuple(shape), tuple(origin), split)
+    tensor_map(plane, shape)
+    return launch_tma_window(tensor_map(plane, plan.box), plan, write, out)
 
 
-def launch_tma_window(tmap, shape, origin, split, write, out):
-    """Launch ``tma_window_kernel`` once with the encoded tensor map
-    ``tmap`` of the plane and ``shape`` (``tensor_map``): the window at
-    ``origin`` is read into ``out``, or set to 7 in the plane, which
-    ``out`` then is.  Nothing is checked here: ``tma_window`` does."""
+def launch_tma_window(tmap, plan, write, out):
+    """Launch ``tma_window_kernel`` once with plan ``plan``
+    (``window_plan``) and the encoded tensor map ``tmap`` of the plane with
+    the plan's box (``tensor_map``): the window is read into ``out``, or
+    set to 7 in the plane, which ``out`` then is.  Nothing is checked here:
+    ``tma_window`` does."""
     dev = out.device
-    with torch.cuda.device(dev):
-        rc = build.load().hevc_tma_window_launch(
-            tmap, *shape, *origin, int(split), int(write), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = build.launch(dev, build.load().hevc_tma_window_launch, tmap,
+                      C.addressof(plan), int(write), out.data_ptr(),
+                      build.stream(dev))
     build.launches["tma_window"] += 1
     build.raise_on(rc, "tma_window_kernel")
     return out
@@ -240,6 +367,23 @@ def pipe_origins(n=PIPE_BLOCKS, seed=0):
     by = rng.randint(0, 900, n) & ~7
     bx = rng.randint(0, 1200, n) & ~127
     return torch.from_numpy(np.stack([by, bx], 1).astype(np.int32))
+
+
+def pipe_tiling(shape):
+    """int32 [n, 2] origins (y, x) of the ``PIPE_BOX`` blocks that tile an
+    (H, W) plane row by row, as far as whole blocks reach: each byte read
+    and written once."""
+    (bh, bw), (H, W) = PIPE_BOX, shape
+    ys, xs = np.meshgrid(np.arange(0, H - bh + 1, bh),
+                         np.arange(0, W - bw + 1, bw), indexing="ij")
+    return torch.from_numpy(np.stack([ys.ravel(), xs.ravel()], 1)
+                            .astype(np.int32))
+
+
+def pipe_bytes(origins):
+    """Bytes the pipe must move for ``origins``: each block read once and
+    written once (overlapping blocks counted once each)."""
+    return 2 * origins.shape[0] * PIPE_BOX[0] * PIPE_BOX[1] * 4
 
 
 def _check_origins(x, origins):
@@ -280,11 +424,10 @@ def launch_tma_pipe(x, origins, out):
                          f"{tuple(x.shape)}")
     if origins.shape[0] == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = build.load().hevc_tma_pipe_launch(
-            tensor_map(x, PIPE_BOX), tensor_map(out, PIPE_BOX),
-            origins.data_ptr(), origins.shape[0], *PIPE_BOX,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = build.launch(dev, build.load().hevc_tma_pipe_launch,
+                      tensor_map(x, PIPE_BOX), tensor_map(out, PIPE_BOX),
+                      origins.data_ptr(), origins.shape[0], *PIPE_BOX,
+                      build.stream(dev))
     build.launches["tma_pipe"] += 1
     build.raise_on(rc, "tma_pipe_kernel")
     return out
@@ -336,15 +479,23 @@ def one_box_outcome(index: int) -> str:
     return got[-1][len(ONE_BOX):]
 
 
+def ramp(shape, dev):
+    """int32 0, 1, 2, ... in a 2-D ``shape`` on ``dev``: the probes' data."""
+    return torch.arange(shape[0] * shape[1], dtype=torch.int32,
+                        device=dev).reshape(shape)
+
+
 def run_probes(dev, log=print):
-    """Every probe once on ``dev``, each held against its plain version on
-    the CPU.  Returns {"tile_shift": {mode: max_abs_err}, "tma_window":
-    {case name: outcome}, "tma_window_err": max_abs_err over the cases
-    that moved data, "tma_pipe": max_abs_err}.  An outcome is "OK",
-    "WRONG DATA" or the encoder's refusal; for a window at an unaligned
-    inner offset it is "OK as two aligned boxes; one box: " and what one
-    box at that offset did (``one_box_outcome``)."""
-    tile = torch.arange(TILE[0] * TILE[1], dtype=torch.int32).reshape(TILE)
+    """Every probe once on ``dev``, each held against its plain version:
+    the roll and the slice of the probe's tile and the roll of an 8K plane
+    (``TILE_8K``), the window cases, the pipe on the probe's plane and on
+    ``PIPE_BIG_PLANE``.  Returns {"tile_shift": {case: max_abs_err},
+    "tma_window": {case name: outcome}, "tma_window_err": max_abs_err over
+    the cases that moved data, "tma_pipe": max_abs_err over both planes}.
+    An outcome is "OK", "WRONG DATA" or the encoder's refusal; for a window
+    at an unaligned inner offset it is "OK as two aligned boxes; one box: "
+    and what one box at that offset did (``one_box_outcome``)."""
+    tile = ramp(TILE, "cpu")
     shift = torch.tensor(SHIFT, dtype=torch.int32)
     res = {"tile_shift": {}, "tma_window": {}, "tma_window_err": 0}
     for mode, name in ((ROLL, "dyn-roll"), (SLICE, "dyn-slice-value")):
@@ -354,8 +505,14 @@ def run_probes(dev, log=print):
             else -1
         res["tile_shift"][name] = err
         log(f"{name}: {'OK' if err == 0 else 'WRONG'}")
-    plane = torch.arange(PLANE[0] * PLANE[1], dtype=torch.int32) \
-        .reshape(PLANE)
+    big, s = ramp(TILE_8K, dev), shift.to(dev)
+    err = int((tile_shift(big, s, ROLL)
+               - tile_shift_plain(big, s, ROLL)).abs().max())
+    res["tile_shift"][f"dyn-roll {TILE_8K[0]}x{TILE_8K[1]}"] = err
+    log(f"dyn-roll of a {TILE_8K[0]}x{TILE_8K[1]} plane: "
+        f"{'OK' if err == 0 else 'WRONG'}")
+    del big
+    plane = ramp(PLANE, "cpu")
     src = plane.to(dev)  # one plane for every case: a tensor map per box
     for k, case in enumerate(WINDOW_CASES):
         src.copy_(plane)
@@ -368,60 +525,125 @@ def run_probes(dev, log=print):
             outcome = "OK" if err == 0 else "WRONG DATA"
         except TmaRejected as e:
             outcome = str(e)
-        (_, ww), (_, ox) = case.shape, case.origin
-        if ox & 3 and outcome == "OK":
-            log(f"  inner offset {4 * ox} B is not 16-byte aligned: boxes at "
-                f"x={ox & ~3} and {(ox & ~3) + ww}")
+        p = window_plan(case.shape, case.origin)
+        if p.lead and outcome == "OK":
+            log(f"  inner offset {4 * case.origin[1]} B is not 16-byte "
+                f"aligned: {p.bands} bands of {p.boxes} ({p.bh}, {p.bw}) "
+                f"box(es) at x={list(window_boxes(p)[0][1])}")
             outcome += f" as two aligned boxes; one box: {one_box_outcome(k)}"
         res["tma_window"][case.name] = outcome
         log(f"{'WRITE' if case.write else 'READ '} {case.name}: "
             f"shape={case.shape} off={case.origin} -> {outcome}")
-    x = torch.arange(PIPE_PLANE[0] * PIPE_PLANE[1], dtype=torch.int32) \
-        .reshape(PIPE_PLANE)
+    x = ramp(PIPE_PLANE, "cpu")
     org = pipe_origins()
     got = tma_pipe(x.to(dev), org.to(dev)).cpu()
     err = int((got - pipe_plain(x, org)).abs().max())
-    res["tma_pipe"] = err
+    x, org = ramp(PIPE_BIG_PLANE, dev), pipe_tiling(PIPE_BIG_PLANE).to(dev)
+    err_big = int((tma_pipe(x, org) - pipe_plain(x, org)).abs().max())
+    res["tma_pipe"] = max(err, err_big)
     log(f"tma-pipeline({PIPE_BLOCKS} blocks rd+wr {PIPE_BOX[0]}x"
-        f"{PIPE_BOX[1]}, ring {PIPE_RING}): {'OK' if err == 0 else 'WRONG'}")
+        f"{PIPE_BOX[1]}, ring {PIPE_RING}): {'OK' if err == 0 else 'WRONG'}; "
+        f"{org.shape[0]} blocks tiling {PIPE_BIG_PLANE[0]}x"
+        f"{PIPE_BIG_PLANE[1]}: {'OK' if err_big == 0 else 'WRONG'}")
     return res
 
 
+def host_us(fn, calls=1000):
+    """Host time in us per call of fn(): ``calls`` calls without a sync,
+    timed by ``time.perf_counter``, then one sync (not timed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def time_probes(dev):
-    """(kernel ms, plain ms) of each probe on the card, at the probes'
-    shapes: the roll, the (40, 128) odd-offset window read and the pipe.
-    The window is timed twice: ``tma_window`` is the bare launch into a
-    buffer with the tensor map in hand (``launch_tma_window``),
-    ``tma_window_call`` the entry point with its checks, its look-up of
-    the map and its allocation.  The pipe's launch and its plain index
-    copy are timed without the origins' check, which reads them back and
-    so waits for the card."""
-    tile = torch.arange(TILE[0] * TILE[1], dtype=torch.int32,
-                        device=dev).reshape(TILE)
-    shift = torch.tensor(SHIFT, dtype=torch.int32, device=dev)
-    plane = torch.arange(PLANE[0] * PLANE[1], dtype=torch.int32,
-                         device=dev).reshape(PLANE)
-    x = torch.arange(PIPE_PLANE[0] * PIPE_PLANE[1], dtype=torch.int32,
-                     device=dev).reshape(PIPE_PLANE)
-    org = pipe_origins().to(dev)
-    out = torch.zeros_like(x)
+    """Times of each probe on the card.  Returns (ms, host): ms[case] =
+    (kernel ms, plain ms) by CUDA events, host[case] = us a call on the
+    host (``host_us``).  Cases: ``tile_shift`` the entry point's roll of
+    the probe's tile, ``tile_shift_8k`` that of ``TILE_8K``;
+    ``tma_window`` the bare launch of the (40, 128) odd-offset window read
+    (the plan and its tensor map in hand, ``launch_tma_window``),
+    ``tma_window_call`` the entry point with its checks, its look-up of the
+    maps and its allocation; ``tma_pipe`` the pipe on the probe's plane,
+    ``tma_pipe_big`` on ``PIPE_BIG_PLANE``, each timed without the origins'
+    check, which reads them back and so waits for the card (its plain
+    index copy too).  The host column also holds the library calls:
+    ``torch.roll`` of the probe's tile and slice + clone of the window."""
+    tile, shift = ramp(TILE, dev), torch.tensor(SHIFT, dtype=torch.int32,
+                                                   device=dev)
+    big = ramp(TILE_8K, dev)
+    plane = ramp(PLANE, dev)
     case = WINDOW_CASES[1]
-    tmap = tensor_map(plane, case.shape)
+    (wh, ww), (oy, ox) = case.shape, case.origin
+    plan = window_plan(case.shape, case.origin)
+    tmap = tensor_map(plane, plan.box)
     wout = torch.empty(case.shape, dtype=torch.int32, device=dev)
-    plain_ms = cuda_ms(lambda: window_plain(plane, case.shape, case.origin,
-                                            False))
-    return {
-        "tile_shift": (cuda_ms(lambda: tile_shift(tile, shift, ROLL)),
-                       cuda_ms(lambda: tile_shift_plain(tile, shift, ROLL))),
-        "tma_window": (
-            cuda_ms(lambda: launch_tma_window(tmap, case.shape, case.origin,
-                                              True, False, wout)), plain_ms),
-        "tma_window_call": (
-            cuda_ms(lambda: tma_window(plane, case.shape, case.origin,
-                                       False)), plain_ms),
-        "tma_pipe": (cuda_ms(lambda: launch_tma_pipe(x, org, out)),
-                     cuda_ms(lambda: pipe_plain(x, org), iters=5)),
-    }
+    x, org = ramp(PIPE_PLANE, dev), pipe_origins().to(dev)
+    out = torch.zeros_like(x)
+    calls = {
+        "tile_shift": lambda: tile_shift(tile, shift, ROLL),
+        "tile_shift_8k": lambda: tile_shift(big, shift, ROLL),
+        "tma_window": lambda: launch_tma_window(tmap, plan, False, wout),
+        "tma_window_call": lambda: tma_window(plane, case.shape,
+                                              case.origin, False),
+        "tma_pipe": lambda: launch_tma_pipe(x, org, out)}
+    ms = {k: cuda_ms(fn) for k, fn in calls.items()}
+    host = {k: host_us(fn) for k, fn in calls.items()
+            if k not in ("tile_shift_8k", "tma_pipe")}
+    host["torch.roll"] = host_us(lambda: torch.roll(tile, SHIFT, (0, 1)))
+    host["slice + clone"] = host_us(
+        lambda: plane[oy:oy + wh, ox:ox + ww].clone())
+    plain = {"tile_shift": cuda_ms(lambda: tile_shift_plain(tile, shift,
+                                                            ROLL)),
+             "tile_shift_8k": cuda_ms(lambda: tile_shift_plain(big, shift,
+                                                               ROLL)),
+             "tma_pipe": cuda_ms(lambda: pipe_plain(x, org), iters=5)}
+    plain["tma_window"] = plain["tma_window_call"] = cuda_ms(
+        lambda: window_plain(plane, case.shape, case.origin, False))
+    del big, x, out
+    x = ramp(PIPE_BIG_PLANE, dev)
+    org, out = pipe_tiling(PIPE_BIG_PLANE).to(dev), torch.zeros_like(x)
+    ms["tma_pipe_big"] = cuda_ms(lambda: launch_tma_pipe(x, org, out))
+    plain["tma_pipe_big"] = cuda_ms(lambda: pipe_plain(x, org), iters=3,
+                                    warmup=1)
+    return {k: (v, plain[k]) for k, v in ms.items()}, host
+
+
+def time_window_plans(dev, bands=(40, 20, 16, 8, 4, 2)):
+    """{plan: (events ms, device ms)} of ``tma_window_kernel`` on the
+    (40, 128) odd-offset read under each band height, with one box of
+    ww + 4 columns a band and with two boxes of ww (the plan of a window
+    too wide for one), each held against slice + clone first; and
+    slice + clone itself."""
+    from .device import profiler_ms
+    plane = ramp(PLANE, dev)
+    case = WINDOW_CASES[1]
+    (wh, ww), (oy, ox) = case.shape, case.origin
+    want = plane[oy:oy + wh, ox:ox + ww].clone()
+    out = torch.empty_like(want)
+    res = {}
+    for band in bands:
+        p = window_plan(case.shape, case.origin, True, band)
+        for plan in (p, WindowParams(*(getattr(p, f) for f, _ in
+                                       WindowParams._fields_[:6]), p.ww,
+                                     p.bands)):
+            tmap = tensor_map(plane, plan.box)
+            fn = functools.partial(launch_tma_window, tmap, plan, False, out)
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"tma_window_kernel: plan {plan.box} x "
+                                   f"{plan.boxes} != slice")
+            res[f"bands of {plan.bh}, {plan.boxes} box(es) of {plan.box}"] \
+                = (cuda_ms(fn), profiler_ms(fn, "tma_window_kernel"))
+    lib = lambda: plane[oy:oy + wh, ox:ox + ww].clone()  # noqa: E731
+    res["slice + clone"] = (cuda_ms(lib), profiler_ms(lib))
+    return res
 
 
 def main(argv=None) -> int:
@@ -431,6 +653,9 @@ def main(argv=None) -> int:
                     help="move WINDOW_CASES[CASE] as one TMA box at its own "
                     "offset and print the outcome (what one_box_outcome "
                     "runs in a child process)")
+    ap.add_argument("--plans", action="store_true",
+                    help="only time tma_window_kernel under each plan of "
+                    "the (40, 128) odd-offset read (time_window_plans)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda":
@@ -440,18 +665,34 @@ def main(argv=None) -> int:
     if args.one_box is not None:
         print(ONE_BOX + _one_box(WINDOW_CASES[args.one_box], dev), flush=True)
         return 0
+    if args.plans:
+        card = card_label()
+        for k, (ev, device) in time_window_plans(dev).items():
+            print(f"{k}: {ev:.5f} ms by events, {device:.6f} ms on the "
+                  f"device ({card})")
+        return 0
     run_probes(dev)
-    times = time_probes(dev)
-    ms, plain = times["tma_pipe"]
-    print(f"tma-pipeline: {ms:.4f} ms ({ms / PIPE_BLOCKS * 1e3:.4f} us/block, "
-          f"{PIPE_BYTES / ms / 1e6:.1f} GB/s); plain index copy {plain:.4f} "
-          "ms")
-    for k in ("tile_shift", "tma_window", "tma_window_call"):
-        print(f"{k}: {times[k][0]:.4f} ms per launch, plain {times[k][1]:.4f}"
-              " ms")
-    print(f"card: {torch.cuda.get_device_name(dev)}")
+    times, host = time_probes(dev)
+    card = card_label()
+    for k, (ms, plain) in times.items():
+        print(f"{k}: {ms:.5f} ms a launch, plain {plain:.5f} ms (CUDA "
+              f"events; {card})")
+    for k, pipe in (("tma_pipe", pipe_origins()),
+                    ("tma_pipe_big", pipe_tiling(PIPE_BIG_PLANE))):
+        ms = times[k][0]
+        print(f"{k}: {ms / pipe.shape[0] * 1e3:.4f} us/block, "
+              f"{pipe_bytes(pipe) / ms / 1e6:.1f} GB/s ({card})")
+    print(f"host us a call: {host} ({card})")
     return 0
 
+
+def card_label() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` gives
+    them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 if __name__ == "__main__":
     sys.exit(main())

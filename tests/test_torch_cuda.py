@@ -355,11 +355,16 @@ def test_tma_window_encodes_once_per_plane_and_box_on_card(card):
         assert torch.equal(got, plane[oy:oy + 8, ox:ox + 128])
     n = {k: build.launches[k] - before[k] for k in ("tma_window",
                                                      "tma_encode")}
-    assert n == {"tma_window": 5, "tma_encode": 1}
-    probes.tma_window(plane, (16, 32), (13, 37), False)   # another box
+    # the window's box, and the boxes of its plans: bands of 4 rows, of
+    # 132 columns at the odd offset
+    assert {probes.window_plan((8, 128), o).box for o in
+            ((16, 256), (13, 37), (0, 0), (504, 1280))} == {(4, 128),
+                                                           (4, 132)}
+    assert n == {"tma_window": 5, "tma_encode": 3}
+    probes.tma_window(plane, (16, 32), (13, 37), False)   # two more boxes
     probes.tma_window(other, (8, 128), (16, 256), False)  # another plane
     torch.cuda.synchronize()
-    assert build.launches["tma_encode"] - before["tma_encode"] == 3
+    assert build.launches["tma_encode"] - before["tma_encode"] == 7
 
 
 @pytest.mark.cuda
@@ -387,6 +392,83 @@ def test_tile_shift_kernel_matches_plain_on_card(card, mode, shift):
     got = probes.tile_shift(x, s, mode)
     torch.cuda.synchronize()
     assert torch.equal(got, probes.tile_shift_plain(x, s, mode))
+
+
+TILE_SHAPES = [(48, 256), (1, 4), (7, 13), (1088, 1920), (4320, 7680)]
+
+
+def _tile_shifts(h, w):
+    return [(3, 37), (-5, -300), (0, 0), (h, w), (2 * h + 1, 3 * w + 2),
+            (-h - 1, w + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", TILE_SHAPES)
+def test_tile_shift_kernel_matches_plain_at_every_shape_on_card(card, h, w):
+    """Each roll, and each slice where the window fits, at shifts below,
+    at and past the tile's size; the last two tiles are over the 227 KB
+    the kernel used to stage, the last one over L2."""
+    from hevc_tpu_torch import probes
+    x = torch.randint(-2**31, 2**31 - 1, (h, w), dtype=torch.int32,
+                      device=card)
+    sh, sw = probes.SLICE_SHAPE
+    modes = [0, 1] if h >= sh and w >= sw else [0]
+    for mode in modes:
+        for shift in _tile_shifts(h, w):
+            s = torch.tensor(shift, dtype=torch.int32, device=card)
+            before = build.launches["tile_shift"]
+            got = probes.tile_shift(x, s, mode)
+            assert build.launches["tile_shift"] == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.tile_shift_plain(x, s, mode)), \
+                (mode, shift)
+
+
+def _window_grid(seed, n=40):
+    """(shape, origin) of seeded windows on the probe's plane: widths a
+    multiple of 4 up to 256 (the ones a box takes), half at an aligned and
+    half at an odd inner offset, and the widest at both."""
+    from hevc_tpu_torch import probes
+    H, W = probes.PLANE
+    rng = np.random.default_rng(seed)
+    out = [((256, 256), (H - 256, W - 256)), ((256, 256), (0, 3)),
+           ((8, 256), (5, W - 257)), ((3, 4), (H - 3, 1)), ((1, 4), (0, 0))]
+    for k in range(n):
+        wh, ww = int(rng.integers(1, 257)), 4 * int(rng.integers(1, 65))
+        oy = int(rng.integers(0, H - wh + 1))
+        ox = int(rng.integers(0, W - ww + 1))
+        ox = ox & ~3 if k % 2 else max(ox - (ox & 3) + 1 + k % 3, 1)
+        out.append(((wh, ww), (oy, min(ox, W - ww))))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", [False, True])
+def test_tma_window_matches_plain_on_a_seeded_grid_on_card(card, write):
+    from hevc_tpu_torch import probes
+    plane = torch.randint(-2**31, 2**31 - 1, probes.PLANE,
+                          dtype=torch.int32, device=card)
+    refused = []
+    for shape, origin in _window_grid(11 + write):
+        src = plane.clone()
+        want = probes.window_plain(plane.clone(), shape, origin, write)
+        plan = probes.window_plan(shape, origin)
+        tmap = probes.tensor_map(src, plan.box)  # the plan's box is taken
+        try:
+            got = probes.tma_window(src, shape, origin, write)
+        except probes.TmaRejected:
+            # the encoder refused the window's own box (the probe's
+            # question); the plan's box moves the window all the same
+            refused.append(shape)
+            out = src if write else torch.empty_like(want)
+            got = probes.launch_tma_window(tmap, plan, write, out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (shape, origin)
+    # what the encoder refuses is a rule of the box, not of the plane
+    for shape in refused:
+        with pytest.raises(probes.TmaRejected):
+            probes.tensor_map(plane, shape)
+    print(f"window boxes the encoder refused: {sorted(set(refused))}")
 
 
 @pytest.mark.cuda
