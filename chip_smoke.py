@@ -20,8 +20,22 @@
    outputs lived on the card; then holds both kernels against their plain
    versions on the captured rows of a real 1080p P frame and times them
    there with CUDA events and ``torch.profiler`` (after the counted run,
-   which no profiler session may precede: see PERF.md);
-5. the CABAC path: captures every WPP substream of that 1080p stream
+   which no profiler session may precede: see PERF.md).  The 1080p
+   streams are encoded once into ``.bench/`` by four worker processes
+   that start with the script and are done before the first 1080p
+   decode;
+5. the formats phase: three more 1920x1080 IPP streams (``FORMATS``: A
+   4:2:0 with 4 slices over 2x2 tiles without cross-tile filtering,
+   per-slice deblocking parameters and PCM CUs exempt from the loop
+   filters; B 4:2:2 10-bit with dependent slice segments and WPP, whose
+   stage A runs in the Python syntax layer; C 4:0:0), each decoded with
+   ``TorchDecoder`` twice: once capturing the kernels' inputs and timing
+   each stage with the card synchronised, once counted, with every MD5
+   checked, every output and device DPB entry on the card, MC launched
+   once per P picture and the residual add at least once; then holds both
+   inter kernels against their plain versions on a captured P picture of
+   the stream (tolerance 0) and prints fps and the stage split;
+6. the CABAC path: captures every WPP substream of that 1080p stream
    with the port's Python engine (one row per substream) and
    encodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024); the sets
    are all 68 substreams, the first 17 (one picture's rows), the random
@@ -36,7 +50,7 @@
    bound with its terms (``cabac.rows.chain_bound``, from the two
    latencies ``chain_latency_kernel`` measures and the card's highest SM
    clock);
-6. the probe path: with the launch counts at 0, runs
+7. the probe path: with the launch counts at 0, runs
    ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the roll of
    an 8K plane, the five TMA window cases of ``tools/probe_dma.py``, the
    2,880-block TMA pipeline and the pipeline over two 8192 x 8192
@@ -48,7 +62,7 @@
    and times each kernel beside its plain version and the one PyTorch
    call for the same function (by CUDA events here, and by
    ``torch.profiler`` at the end), and each wrapper's host cost a call;
-7. prints the kernel table as JSON: per kernel its launches on the
+8. prints the kernel table as JSON: per kernel its launches on the
    counted run, its error against the plain version, the kernel's, the
    plain version's and (where one PyTorch call computes the same
    function) that call's ms, and the bound: the largest of the bytes the
@@ -66,10 +80,12 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -97,24 +113,78 @@ def log(*a):
     print(*a, flush=True)
 
 
-def synth_stream(path, w, h, qp, frames, wpp=True, log2_ctb=6):
-    """IPP stream with the settings of bench.py's _synth_stream."""
+def synth_stream(path, w, h, qp, frames, wpp=True, log2_ctb=6, **extra):
+    """IPP stream with the settings of bench.py's _synth_stream; ``extra``
+    overrides or adds encoder settings (the format streams')."""
     from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
     from hevc_tpu_torch.encoder.generate import synth_frame
-    enc = IntraEncoder(EncoderConfig(
-        width=w, height=h, qp=qp, log2_ctb_size=log2_ctb,
-        log2_cu_size=log2_ctb, deblocking=True, sao=True, seed=1,
-        gop="ipp", search_range=3, wpp=wpp))
+    kw = dict(width=w, height=h, qp=qp, log2_ctb_size=log2_ctb,
+              log2_cu_size=log2_ctb, deblocking=True, sao=True, seed=1,
+              gop="ipp", search_range=3, wpp=wpp)
+    kw.update(extra)
+    cfg = EncoderConfig(**kw)
+    enc = IntraEncoder(cfg)
     base = synth_frame("gradient", w, h, 0, seed=9)
+    cf, bd = cfg.chroma_format_idc, cfg.bit_depth
     data = bytearray()
     for t in range(frames):
-        data += enc.encode_frame([np.roll(base[0], (t * 4, t * 7), (0, 1)),
-                                  np.roll(base[1], (t * 2, t * 3), (0, 1)),
-                                  np.roll(base[2], (t * 2, t * 3), (0, 1))])
+        planes = [np.roll(base[0], (t * 4, t * 7), (0, 1))]
+        for c in base[1:] if cf else ():
+            c = np.roll(c, (t * 2, t * 3), (0, 1))
+            if cf == 2:      # 4:2:2: chroma at the luma's height
+                c = np.repeat(c, 2, 0)
+            elif cf == 3:
+                c = np.repeat(np.repeat(c, 2, 0), 2, 1)
+            planes.append(c)
+        if bd > 8:
+            planes = [p.astype(np.int32) << (bd - 8) for p in planes]
+        data += enc.encode_frame(planes)
     tmp = path + f".{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+    return path
+
+
+# the formats phase's 1920x1080 streams: synth_stream's settings plus these
+# (PCM CUs are at most 32x32, so stream A codes 32x32 CUs in its 64x64 CTBs)
+FORMATS = {
+    "A 4:2:0 8-bit, 4 slices over 2x2 tiles, per-slice filters, PCM": (
+        dict(slices=4, tiles=(2, 2), lf_across_tiles=False,
+             slice_filter_params=(dict(beta_offset=2, tc_offset=-2),
+                                  dict(disable=True), dict(lf_across=False),
+                                  dict(beta_offset=-4, tc_offset=4)),
+             pcm=0.05, pcm_loop_filter_disabled=True, log2_cu_size=5), 3),
+    "B 4:2:2 10-bit, dependent slices with WPP": (
+        dict(chroma_format_idc=2, bit_depth=10, dependent_slices=2), 3),
+    "C 4:0:0 8-bit": (dict(chroma_format_idc=0), 3),
+}
+
+
+def format_path(name):
+    return os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_"
+                        f"{FORMATS[name][1]}f_fmt{name[0]}.265")
+
+
+def start_streams(pool):
+    """Encode every missing 1080p stream, each in a worker process of
+    ``pool``: {path: (future or None, the time the encode started)}."""
+    os.makedirs(CACHE, exist_ok=True)
+    jobs = {STREAM: (W, H, QP, FRAMES, {})}
+    for name, (extra, frames) in FORMATS.items():
+        jobs[format_path(name)] = (W, H, QP, frames, extra)
+    return {path: (None if os.path.exists(path) else pool.submit(
+        synth_stream, path, w, h, qp, n, **extra), time.perf_counter())
+        for path, (w, h, qp, n, extra) in jobs.items()}
+
+
+def wait_streams(started):
+    for path, (fut, t0) in started.items():
+        if fut is not None:
+            fut.result()
+            log(f"generated {os.path.relpath(path, ROOT)}: encoded in a "
+                f"worker process, ready {time.perf_counter() - t0:.1f} s "
+                "after the encodes started (the four ran side by side)")
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +332,7 @@ class Capture:
     with the device synchronised before and after (ms per call)."""
 
     STAGES = ("frame_program", "residuals", "reconstruct_wavefront",
-              "deblock", "sao_plane")
+              "deblock", "deblock_luma", "sao_plane")
 
     def __init__(self):
         self.mc, self.resid = [], []
@@ -442,6 +512,128 @@ def phase_real_kernels(cap, dev):
     return {"mc": (mc_err, mc_ms, mc_plain_ms, bound_ms(mc_b, mc_ops)),
             "resid_add": (ra_err, ra_ms, ra_plain_ms,
                           bound_ms(ra_b, ra_ops))}
+
+
+def captured_kernel_errors(cap, dev):
+    """(mc_err, resid_add_err): each kernel against its plain version on
+    the captured inputs of the P picture with the most MC rows."""
+    import torch
+    from hevc_tpu_torch import mc_cuda
+    from hevc_tpu_torch.mc import mc_plain, resid_add_plain
+    from hevc_tpu_torch.tables import tables_from_reference
+    k = max(range(len(cap.mc)),
+            key=lambda i: sum(g[6].shape[0] for g in cap.mc[i][3]))
+    canvas, refs_l, refs_c, groups, bd = cap.mc[k]
+    table = mc_cuda.mc_table(groups, canvas.shape)
+    rows = torch.from_numpy(table.rows).to(dev).int()
+    got = mc_cuda.mc(canvas.clone(), refs_l, refs_c, groups, bd)
+    want = mc_plain(canvas.clone(), refs_l, refs_c,
+                    mc_cuda.table_groups(table, rows), bd,
+                    tables_from_reference(dev))
+    mc_err = int((got - want).abs().max())
+    # the residual add runs on every picture, MC on the P pictures, which
+    # follow the I picture: the same picture's residual inputs
+    canvas, fields, pools, bd = cap.resid[k + len(cap.resid) - len(cap.mc)]
+    got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
+    want = resid_add_plain(canvas.clone(), fields, pools, bd)
+    return mc_err, int((got - want).abs().max())
+
+
+def counted_decode(decode, dev, pipeline, trace, build):
+    """``decode()`` once, counted: launch counts and the trace from 0 just
+    before, read just after.  For each picture through the frame program it
+    records where its output and DPB entries lie, whether it is inter, its
+    planes, PCM records and slices, and whether its stage A ran in the
+    Python syntax layer; every output and DPB entry must be on ``dev``.
+    Returns (decode's result, seen, counts, split, wall seconds)."""
+    from hevc_tpu_torch import native as N
+    seen = []
+    orig_finish = pipeline.finish_frame
+
+    def finish(pic, lay, poc, device):
+        out = orig_finish(pic, lay, poc, device)
+        seen.append(dict(
+            devices={out[0].device.type} | {
+                t.device.type for t in lay.dpb_dev[poc]},
+            inter=bool(getattr(pic, "ref_list_l0", None)
+                       or getattr(pic, "ref_list_l1", None)),
+            planes=len(out[1]),
+            pcm=sum(int((rec[:, N.REC_KIND] == N.KIND_PCM).sum())
+                    for rec, _lvl in pic.native_chunks),
+            slices=len(pic.slice_params or ()), from_plan=bool(pic.plan)))
+        return out
+
+    pipeline.finish_frame = finish
+    trace.reset()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = decode()
+    finally:
+        pipeline.finish_frame = orig_finish
+    wall = time.perf_counter() - t0
+    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
+    split = trace.report()
+    assert all(s["devices"] == {dev.type} for s in seen), \
+        f"outputs or DPB entries not on the card: {seen}"
+    return result, seen, counts, split, wall
+
+
+def phase_format(name, dev, smi, decoder, pipeline, trace, build):
+    """One stream of FORMATS on the card, twice through ``TorchDecoder``:
+    first with the kernels' inputs captured and each stage timed with the
+    card synchronised around it (also the warm-up), then counted: launch
+    counts from 0 just before, read just after, every MD5 checked, every
+    output and device DPB entry on the card."""
+    import torch
+    data = open(format_path(name), "rb").read()
+    n_frames = FORMATS[name][1]
+    cap = Capture()
+    os.environ["HEVC_TPU_ASYNC_PACK"] = "0"
+    try:
+        with cap.installed():
+            frames = decoder.TorchDecoder(check_md5=True,
+                                          device=dev).decode_bytes(data)
+            assert [f.md5_ok for f in frames] == [True] * n_frames, \
+                f"{name}: MD5 of the captured run"
+    finally:
+        os.environ.pop("HEVC_TPU_ASYNC_PACK")
+
+    def decode():
+        frames = decoder.TorchDecoder(check_md5=True,
+                                      device=dev).decode_bytes(data)
+        return [f.md5_ok for f in frames]
+
+    md5, seen, counts, split, wall = counted_decode(
+        decode, dev, pipeline, trace, build)
+    n_inter = sum(s["inter"] for s in seen)
+    assert md5 == [True] * n_frames, f"{name}: MD5 {md5}"
+    assert len(seen) == n_frames and n_inter == n_frames - 1, seen
+    assert counts["mc"] == n_inter and counts["resid_add"] > 0, \
+        f"{name}: launches {counts} for {n_inter} P pictures"
+    fmt = name[0]
+    if fmt == "A":
+        assert seen[0]["pcm"] > 0 and all(s["slices"] == 4 for s in seen)
+    if fmt == "B":
+        assert all(s["from_plan"] for s in seen), "B: native records?"
+    if fmt == "C":
+        assert all(s["planes"] == 1 for s in seen)
+    mc_err, ra_err = captured_kernel_errors(cap, dev)
+    assert mc_err == 0 and ra_err == 0, \
+        f"{name}: kernels != plain ({mc_err}, {ra_err})"
+    torch.cuda.synchronize()
+    log(f"format {name}: {n_frames} frames, every MD5 correct, outputs and "
+        f"DPB on the card, launches {counts} for {n_inter} P pictures, "
+        f"PCM records per picture {[s['pcm'] for s in seen]}, slices "
+        f"{[s['slices'] for s in seen]}, Python stage A "
+        f"{[s['from_plan'] for s in seen]}; mc_kernel and resid_add_kernel "
+        f"== plain on the captured P picture (error {mc_err}, {ra_err})")
+    log(f"format {name}: {n_frames / wall} fps (TorchDecoder.decode_bytes "
+        f"and the MD5 fetch, {wall:.3f} s) ({smi}); trace split, "
+        "ms/frame: " + ", ".join(f"{k} {v['total_s'] * 1e3 / n_frames}"
+                                 for k, v in sorted(split.items())))
+    log(f"format {name}, captured run, stages synchronised, ms per call: "
+        f"{cap.report()} ({smi})")
 
 
 def phase_small_reference(dev):
@@ -718,8 +910,21 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    from hevc_tpu_torch import build, cli, decoder, native, pipeline, trace
+    # the 1080p streams encode in worker processes while the kernels build
+    # and the first phases run; the workers are gone before the first 1080p
+    # decode, so that nothing of theirs runs beside a timed phase
     dev = torch.device("cuda", 0)
+    with ProcessPoolExecutor(4, mp_context=mp.get_context("spawn")) as pool:
+        started = start_streams(pool)
+        prepare(dev)
+        wait_streams(started)
+    return run(smi, dev)
+
+
+def prepare(dev):
+    """Build stage A and the kernels; the random kernel cases and the small
+    stream."""
+    from hevc_tpu_torch import build, native
     assert native.available(), "native stage A failed to build"
     log(f"native stage A: {os.path.relpath(native._SO, ROOT)}")
     t0 = time.perf_counter()
@@ -727,16 +932,13 @@ def main():
     build.load()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(os.path.relpath(s, ROOT) for s in build.sources())})")
-
     phase_random_kernels(dev)
     phase_small_reference(dev)
 
-    os.makedirs(CACHE, exist_ok=True)
-    if not os.path.exists(STREAM):
-        t0 = time.perf_counter()
-        synth_stream(STREAM, W, H, QP, FRAMES)
-        log(f"generated {os.path.relpath(STREAM, ROOT)} in "
-            f"{time.perf_counter() - t0:.1f} s")
+
+def run(smi, dev):
+    import torch
+    from hevc_tpu_torch import build, cli, decoder, pipeline, trace
 
     # two uncounted decodes: a warm-up, then one with the pack and the
     # frame program inline (not overlapped with the next frames' stage A)
@@ -760,41 +962,22 @@ def main():
 
     # the counted run: the CLI entry point, launch counts from zero; before
     # any torch.profiler session (after one, this run was 15-25% slower)
-    seen = []
-    orig_finish = pipeline.finish_frame
-
-    def finish(pic, lay, poc, device):
-        inter = bool(getattr(pic, "ref_list_l0", None)
-                     or getattr(pic, "ref_list_l1", None))
-        out = orig_finish(pic, lay, poc, device)
-        seen.append((out[0].device.type, lay.dpb_dev[poc][0].device.type,
-                     inter))
-        return out
-
-    pipeline.finish_frame = finish
-    trace.reset()
-    build.reset_launches()
     buf = io.StringIO()
-    t0 = time.perf_counter()
-    try:
+
+    def decode():
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(["-i", STREAM, "-v", "40", "--device", "cuda"])
-    finally:
-        pipeline.finish_frame = orig_finish
-    wall = time.perf_counter() - t0
-    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
-    split = trace.report()
+            return cli.main(["-i", STREAM, "-v", "40", "--device", "cuda"])
+
+    rc, seen, counts, split, wall = counted_decode(
+        decode, dev, pipeline, trace, build)
     out = buf.getvalue()
     log(out.strip())
-    n_inter = sum(s[2] for s in seen)
+    n_inter = sum(s["inter"] for s in seen)
     assert rc == 0, f"cli.main returned {rc}"
     assert out.count("Correct MD5") == FRAMES, "not every frame's MD5 ok"
-    assert n_inter == FRAMES - 1, f"{n_inter} inter pictures"
+    assert len(seen) == FRAMES and n_inter == FRAMES - 1, seen
     assert counts["mc"] == n_inter and 0 < counts["resid_add"] <= n_inter, \
         f"launches {counts} for {n_inter} inter pictures"
-    assert len(seen) == FRAMES and all(d[:2] == ("cuda", "cuda")
-                                       for d in seen), \
-        f"outputs not on the card: {seen}"
 
     log(f"1080p decode via cli.main: {FRAMES / wall} fps wall "
         f"(incl. MD5 fetch), {out.strip().splitlines()[-1]}")
@@ -805,6 +988,8 @@ def main():
     log(f"launch counts of the counted run: {counts}")
 
     real = phase_real_kernels(cap, dev)
+    for name in FORMATS:
+        phase_format(name, dev, smi, decoder, pipeline, trace, build)
     kernels = []
     for name, line in (("mc", 161), ("resid_add", 356)):
         err, ms, plain_ms, bound = real[name]

@@ -1,11 +1,11 @@
 """Decoder CLI of the PyTorch/CUDA port (counterpart of ``hevc_tpu.cli``).
 
-Decodes an Annex-B stream (or MP4 / MPEG-TS) with ``TorchDecoder``,
-optionally writes the raw YUV, checks the SEI decoded-picture hashes and
-prints ``frame= N fps= F time= T``.
+Decodes an Annex-B stream (or MP4 / MPEG-TS) with ``TorchDecoder`` (or a
+NumPy backend, ``-b``), optionally writes the raw YUV, checks the SEI
+decoded-picture hashes and prints ``frame= N fps= F time= T``.
 
 Usage: python -m hevc_tpu_torch.cli -i in.265 [-o out.yuv] [-c]
-       [--device cuda]
+       [-b torch|inline|plan] [--device cuda]
 """
 from __future__ import annotations
 
@@ -23,6 +23,10 @@ def main(argv=None):
     ap.add_argument("-c", "--no-md5", action="store_true",
                     help="disable SEI decoded-picture-hash checking")
     ap.add_argument("-v", "--log-level", type=int, default=30)
+    ap.add_argument("-b", "--backend", default="torch",
+                    choices=["torch", "inline", "plan"],
+                    help="reconstruction backend (torch = the frame "
+                         "program on --device)")
     ap.add_argument("-n", "--frames", type=int, default=0,
                     help="stop after N frames (0 = all)")
     ap.add_argument("-l", "--layer", type=int, default=63,
@@ -34,14 +38,14 @@ def main(argv=None):
                          "the plain PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
 
-    from .decoder import TorchDecoder
+    from .decoder import Decoder
     from .io import open_input
 
     data = open_input(args.input)
     t0 = time.time()
-    dec = TorchDecoder(check_md5=not args.no_md5, device=args.device,
-                       target_layer=args.layer,
-                       temporal_layer=args.temporal_layer)
+    dec = Decoder(check_md5=not args.no_md5, recon_backend=args.backend,
+                  target_layer=args.layer,
+                  temporal_layer=args.temporal_layer, device=args.device)
     frames = dec.decode_bytes(data)
     top = max((f.layer for f in frames), default=0)
     frames = [f for f in frames if f.layer == top]

@@ -1356,8 +1356,11 @@ class Decoder:
         'torch' records native stage-A chunks and runs stage B, the
         port's frame program (``pipeline.finish_frame``), on ``device``
         (``None`` = the current CUDA device; 'cpu' runs the kernels'
-        plain versions).  SHVC enhancement layers and pictures without
-        native records raise under 'torch' (not ported yet).
+        plain versions); a picture whose stage A ran in the Python syntax
+        layer gives its plan as native records (``native.plan_to_records``),
+        except 4:0:0, which the NumPy executor reconstructs as in the
+        reference.  SHVC enhancement layers raise under 'torch' (not
+        ported yet).
         target_layer/temporal_layer: decode-up-to selectors (the
         quality_layer_id / temporal-layer-id AVOptions of the
         reference, hevcdec.c:4642-4668)."""
@@ -1825,7 +1828,9 @@ class Decoder:
                     sd.rext.stats = list(dep_state[1])
                 sd.wpp_saved = dep_state[3] if len(dep_state) > 3 \
                     else None
-            sd.decode_ctus()
+            from .. import trace
+            with trace.span("stage_a_python"):
+                sd.decode_ctus()
             if pps.dependent_slice_segments_enabled:
                 lay.dep_state = (sd.cm.save(),
                                  list(sd.rext.stats)
@@ -1978,9 +1983,16 @@ class Decoder:
         if plan is not None:
             if self.recon_backend == "torch":
                 if getattr(pic, "native_chunks", None) is None:
-                    raise NotImplementedError(
-                        "hevc_tpu_torch: pictures without native stage-A "
-                        "records are ROADMAP Queue 1 item 6")
+                    # stage A ran in the Python syntax layer: its plan
+                    # becomes the native record stream, so one pack and
+                    # frame program serve every picture
+                    from .. import trace
+                    from ..native import plan_to_records, sao_map_to_arrays
+                    with trace.span("plan_to_records"):
+                        pic.native_chunks = [plan_to_records(plan)]
+                    if getattr(pic, "sao_map", None):
+                        pic.sao_arrays = sao_map_to_arrays(pic.sao_map,
+                                                           pic.sps)
                 # the port's frame program on the ordered pack worker
                 # (which owns lay.dpb_dev): pack + launch of THIS frame
                 # overlap the next frames' stage A; references stay on

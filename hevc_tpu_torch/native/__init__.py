@@ -379,6 +379,72 @@ def records_to_plan(rec: np.ndarray, lvl: np.ndarray, plan: list) -> None:
             plan.append(obj)
 
 
+def plan_to_records(plan) -> tuple:
+    """The inverse of ``records_to_plan``: BlockRecords (decode order) ->
+    one native chunk ``(rec int32 [n, REC_NCOLS], lvl int16)``, the
+    record stream the packer takes.  Serves pictures whose stage A ran in
+    the Python syntax layer (dependent slice segments, no native build),
+    so they go through the same pack and frame program."""
+    rec = np.zeros((len(plan), REC_NCOLS), np.int32)
+    pool, used = [], 0
+    row_of = {}
+
+    def put(levels):
+        nonlocal used
+        flat = np.asarray(levels).reshape(-1)
+        pool.append(flat.astype(np.int16))
+        used += flat.size
+        return used - flat.size
+
+    for i, b in enumerate(plan):
+        r = rec[i]
+        r[REC_PLANE], r[REC_X], r[REC_Y], r[REC_W] = b.plane, b.x, b.y, \
+            b.size
+        r[REC_H] = b.h or b.size
+        if b.kind == "mc":
+            r[REC_KIND] = KIND_MC
+            r[REC_FLAGS] = (F_BI if b.bi else 0) | (F_LX if b.lx else 0)
+            r[REC_MVX0], r[REC_MVY0] = b.mv
+            r[REC_REF0] = b.ref_idx
+            r[REC_MVX1], r[REC_MVY1] = b.mv1
+            r[REC_REF1] = b.ref_idx1
+            r[REC_WPW0:REC_LOG2WD + 1] = b.wp if b.wp is not None \
+                else (0, 0, 0, 0, -1)
+        elif b.kind == "pcm":
+            r[REC_KIND] = KIND_PCM
+            r[REC_LVL] = put(b.levels)
+        else:
+            r[REC_KIND] = KIND_INTRA if b.kind == "intra" else KIND_RESID
+            r[REC_MODE], r[REC_QP], r[REC_MTX] = b.mode, b.qp, b.mtx
+            r[REC_LVL] = -1 if b.levels is None else put(b.levels)
+            r[REC_FLAGS] = ((F_DST if b.dst else 0) | (F_TS if b.ts else 0)
+                            | (F_TQB if b.tqb else 0)
+                            | (F_ROT if b.rot else 0)
+                            | (F_RDPCM_H if b.rdpcm == 1 else 0)
+                            | (F_RDPCM_V if b.rdpcm == 2 else 0))
+            r[REC_CCP] = b.ccp
+            if b.ccp:
+                r[REC_CCPREF] = row_of[id(b.ccp_ref)]
+            row_of[id(b)] = i
+    lvl = np.concatenate(pool) if pool else np.zeros(0, np.int16)
+    return rec, lvl
+
+
+def sao_map_to_arrays(sao_map, sps) -> tuple:
+    """The inverse of ``sao_arrays_to_map``: the Python syntax layer's
+    per-CTB SaoParams -> the (type, band, offsets, eo_class) arrays the
+    native stage A fills (``pic.sao_arrays``)."""
+    ct = (3, sps.ctb_h, sps.ctb_w)
+    t, b, e = (np.zeros(ct, np.int32) for _ in range(3))
+    o = np.zeros(ct + (4,), np.int32)
+    for (xc, yc), prm in sao_map.items():
+        t[:, yc, xc] = prm.type_idx
+        b[:, yc, xc] = prm.band_position
+        o[:, yc, xc] = prm.offsets
+        e[:, yc, xc] = prm.eo_class
+    return t, b, o, e
+
+
 def decode_slice_native(pic, sps, pps, sh, init_type: int, rbsp: bytes,
                         seg_starts, slice_idx: int, ref_list, ref_list_l1,
                         lt0, lt1, tmvp, cur_poc: int, chunk_slot=None,

@@ -23,6 +23,8 @@ import numpy as np
 
 from . import native as N
 from . import trace
+from .ops.boundaries import (gate_bs, sao_edge_flag_map, slice_param_arrays,
+                             upsample4)
 
 PAD = 8          # top/left margin of each region
 TAIL = 72        # bottom/right slack so 2n-reads never leave the canvas
@@ -162,12 +164,10 @@ def saturate_mc_windows(mcrow, nm, sps):
 
 def pack_frame(pic):
     """Native records of one picture -> (meta, meta16, meta8, avail_u8,
-    levels16, canvas0, spec).  ``canvas0`` is the canvas shape: the frame
-    program starts from zeros."""
+    levels16, canvas0, spec).  ``canvas0`` is the canvas shape (the frame
+    program starts from zeros), or an int16 host canvas holding the
+    picture's PCM samples."""
     sps = pic.sps
-    if sps.chroma_format_idc == 0:
-        raise NotImplementedError(
-            "hevc_tpu_torch: 4:0:0 is ROADMAP Queue 1 item 5")
     reg, chh, cww = region_offsets(sps)
     with trace.span("pack.concat"):
         rec, lvl = N._concat_chunks(pic.native_chunks)
@@ -211,9 +211,13 @@ def pack_frame(pic):
     if rc != 0:
         raise RuntimeError(f"native pipeline pack failed (rc={rc})")
     ni, nl, nm, nr, npcm, n_chunks_raw = (int(v) for v in counts[:6])
+    canvas0 = (chh, cww)
     if npcm:
-        raise NotImplementedError(
-            "hevc_tpu_torch: the PCM canvas is ROADMAP Queue 1 item 5")
+        # PCM samples pre-fill the canvas; nothing else writes there
+        canvas0 = np.zeros(canvas0, np.int16)
+        for _plane, cy, cx, w, h, off in pcmrow[:npcm].tolist():
+            canvas0[cy:cy + h, cx:cx + w] = lvl[off:off + w * h].reshape(
+                h, w)
 
     with trace.span("pack.guard"):
         if nm:
@@ -308,17 +312,38 @@ def pack_frame(pic):
     dbp = getattr(pic, "deblock_params", None)
     slice_params = getattr(pic, "slice_params", None) or []
     pps = pic.pps
-    if len(slice_params) > 1 or (pps.tiles_enabled
-                                 and not pps.loop_filter_across_tiles):
-        raise NotImplementedError(
-            "hevc_tpu_torch: per-slice/tile filter maps are ROADMAP "
-            "Queue 1 item 5")
-    nfmap = getattr(pic, "no_filter", None)
-    if nfmap is not None and nfmap.any():
-        raise NotImplementedError(
-            "hevc_tpu_torch: PCM/TQB filter exemption is ROADMAP Queue 1 "
-            "item 5")
-    if dbp is not None:
+    per_slice = len(slice_params) > 1 or (
+        pps.tiles_enabled and not pps.loop_filter_across_tiles)
+    if per_slice:
+        # multi-slice filter semantics: gated BS, per-4x4 offset maps and
+        # per-CTB SAO edge restrictions travel in meta8
+        cs = 1 << sps.log2_ctb_size
+        beta_c, tc_c, dis_c, lfa_c = slice_param_arrays(
+            pic.slice_idx, slice_params or [{}])
+        tiles_m = np.asarray(pps.tile_of_ctb) if pps.tiles_enabled \
+            else np.zeros_like(pic.slice_idx)
+        do_deblock = not (dis_c == 1).all()
+        if do_deblock:
+            pic.compute_bs()
+            gv, gh = gate_bs(pic.bs_v, pic.bs_h, pic.slice_idx, tiles_m,
+                             lfa_c, dis_c,
+                             bool(pps.loop_filter_across_tiles), cs)
+        else:
+            gv = gh = np.zeros((pic.h4, pic.w4), np.int8)
+        flags = sao_edge_flag_map(pic.slice_idx, tiles_m, lfa_c,
+                                  bool(pps.loop_filter_across_tiles),
+                                  bool(pps.tiles_enabled))
+        parts8 = [pic.qp_y.astype(np.int8).reshape(-1),
+                  gv.astype(np.int8).reshape(-1),
+                  gh.astype(np.int8).reshape(-1),
+                  upsample4(beta_c, cs, pic.h4, pic.w4)
+                  .astype(np.int8).reshape(-1),
+                  upsample4(tc_c, cs, pic.h4, pic.w4)
+                  .astype(np.int8).reshape(-1),
+                  flags.view(np.int8).reshape(-1)]
+        parts.append(np.array([0, 0, pps.cb_qp_offset, pps.cr_qp_offset],
+                              np.int32))
+    elif dbp is not None:
         do_deblock = True
         pic.compute_bs()
         parts8 = [pic.qp_y.astype(np.int8).reshape(-1),
@@ -331,6 +356,12 @@ def pack_frame(pic):
         do_deblock = False
         parts8 = [np.zeros(pic.h4 * pic.w4 * 3, np.int8)]
         parts.append(np.zeros(4, np.int32))
+    # PCM (pcm_loop_filter_disabled) / transquant-bypass exemption, per 4x4
+    nfmap = getattr(pic, "no_filter", None)
+    nf_any = bool(nfmap is not None and nfmap.any())
+    if nf_any:
+        parts8.append(np.ascontiguousarray(nfmap).astype(np.int8)
+                      .reshape(-1))
 
     with trace.span("pack.cat"):
         meta = np.concatenate(parts).astype(np.int32, copy=False)
@@ -344,7 +375,7 @@ def pack_frame(pic):
     do_sao = bool(getattr(pic, "has_sao", False)) \
         or bool(getattr(pic, "sao_map", None))
     spec = (
-        ("per_slice", False),
+        ("per_slice", per_slice),
         ("bd", sps.bit_depth_luma),
         ("n_chunks", n_chunks),
         ("B", tuple(B)),
@@ -359,8 +390,8 @@ def pack_frame(pic):
         ("do_deblock", do_deblock), ("do_sao", do_sao),
         ("n_refs", n_refs),
         ("pallas", 0),
-        ("nf", False),
-        ("mono", False),
+        ("nf", nf_any),
+        ("mono", sps.chroma_format_idc == 0),
         ("coo", (0, sum(len(v) for v in lvl_parts))),
     )
-    return meta, meta16, meta8, avail_u8, levels16, (chh, cww), spec
+    return meta, meta16, meta8, avail_u8, levels16, canvas0, spec

@@ -19,7 +19,7 @@ from . import mc_cuda
 from . import native as N
 from . import trace
 from .coding.picture import crop_conf_win
-from .filters import deblock, sao_plane
+from .filters import deblock, deblock_luma, sao_plane
 from .intra import chunk_counts, reconstruct_wavefront
 from .pack import pack_frame
 from .recon import residuals
@@ -27,11 +27,8 @@ from .tables import dpb_from_numpy, pad_ref, tables_from_reference
 
 I32 = torch.int32
 
-# spec features the frame program does not cover yet -> ROADMAP item
+# spec features the frame program leaves out on purpose
 _UNPORTED = (
-    ("mono", "4:0:0 is ROADMAP Queue 1 item 5"),
-    ("per_slice", "per-slice/tile filter maps are ROADMAP Queue 1 item 5"),
-    ("nf", "PCM/TQB filter exemption is ROADMAP Queue 1 item 5"),
     ("pallas", "the TPU-aligned pack layout is a TPU workaround the port "
                "leaves out (ROADMAP, 'Hopper, not TPU'); pack unaligned"),
 )
@@ -58,10 +55,11 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     meta/meta16/meta8/avail_u8/levels16: NumPy buffers from a pack (this
     package's or the JAX package's unaligned one); scale_bank: per class
     [7, s, s] int32 (NumPy or tensors); canvas0: the canvas shape, or a
-    host canvas; refs_*: PAD_REF-padded int32 reference planes on
-    ``device``.  Returns (fused output buffer, pad_y, pad_cb, pad_cr): the
-    buffer is uint8 (8-bit) or int16 (deeper) planes back to back, the
-    pads int32 PAD_REF replication-padded references."""
+    host canvas (PCM samples); refs_*: PAD_REF-padded int32 reference
+    planes on ``device``.  Returns (fused output buffer, pad_y, pad_cb,
+    pad_cr): the buffer is uint8 (8-bit) or int16 (deeper) planes back to
+    back (the luma plane alone for 4:0:0), the pads int32 PAD_REF
+    replication-padded references (4:0:0: luma in all three)."""
     S = dict(spec)
     _check_spec(S)
     tables = tables_from_reference(device)
@@ -110,9 +108,30 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     sao_b = take(3 * cth * ctw, (3, cth, ctw))
     sao_e = take(3 * cth * ctw, (3, cth, ctw))
     sao_o = take(3 * cth * ctw * 4, (3, cth, ctw, 4))
-    qp4, bs_v, bs_h = (meta8_d[k * h4 * w4:(k + 1) * h4 * w4]
-                       .view(h4, w4).to(I32) for k in range(3))
+    pos8 = 0
+
+    def take8(n, shape):
+        nonlocal pos8
+        out = meta8_d[pos8:pos8 + n].view(shape).to(I32)
+        pos8 += n
+        return out
+
+    qp4, bs_v, bs_h = (take8(h4 * w4, (h4, w4)) for _ in range(3))
     dboff = take(4, (4,))
+    beta_off, tc_off = dboff[0], dboff[1]
+    sao_flags = nf_y = nf_c = None
+    if S["per_slice"]:
+        beta_off = take8(h4 * w4, (h4, w4))
+        tc_off = take8(h4 * w4, (h4, w4))
+        sao_flags = take8(cth * ctw, (cth, ctw)) & 0xFF
+    if S["nf"]:
+        # PCM/TQB loop-filter exemption, per pixel (8.7.2/8.7.3)
+        nf_l = (take8(h4 * w4, (h4, w4)) != 0).repeat_interleave(4, 0) \
+            .repeat_interleave(4, 1)
+        _oy, _ox, hl, wl = S["regions"][0]
+        nf_y = nf_l[:hl, :wl]
+        _oy, _ox, hc, wc = S["regions"][1]
+        nf_c = nf_l[::S["sub_h"], ::S["sub_w"]][:hc, :wc]
 
     apos = 0
     avail = []
@@ -135,30 +154,41 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     if isinstance(canvas0, tuple):
         canvas = torch.zeros(canvas0, dtype=I32, device=device)
     else:
-        canvas = _upload(np.asarray(canvas0, np.int32), device)
+        canvas = _upload(canvas0, device).to(I32)
+    mono = S["mono"]
     if S["n_refs"]:
         refs_l = torch.stack(list(refs_y))
-        refs_c = torch.stack(list(refs_cb) + list(refs_cr))
+        # 4:0:0 has no chroma MC rows: the luma stack stands in for the
+        # chroma operand, which is never read
+        refs_c = refs_l if mono else torch.stack(list(refs_cb)
+                                                 + list(refs_cr))
         mc_cuda.mc(canvas, refs_l, refs_c, mc_groups, bd)
     mc_cuda.resid_add(canvas, resid_fields, resids, bd)
     out = reconstruct_wavefront(canvas, scal, avail, resids, bd, tables,
                                 counts)
     y, cb, cr = (out[oy:oy + h, ox:ox + w] for oy, ox, h, w in S["regions"])
-    if S["do_deblock"]:
-        y, cb, cr = deblock(y, cb, cr, qp4, bs_v, bs_h, dboff[0], dboff[1],
+    if S["do_deblock"] and mono:
+        y = deblock_luma(y, qp4, bs_v, bs_h, beta_off, tc_off, tables, bd,
+                         nf_y)
+    elif S["do_deblock"]:
+        y, cb, cr = deblock(y, cb, cr, qp4, bs_v, bs_h, beta_off, tc_off,
                             dboff[2], dboff[3], tables, bd=bd,
-                            sub_w=S["sub_w"], sub_h=S["sub_h"])
+                            sub_w=S["sub_w"], sub_h=S["sub_h"], nf_y=nf_y,
+                            nf_c=nf_c)
+    planes = [y] if mono else [y, cb, cr]
     if S["do_sao"]:
-        outp = []
-        for plane, p in enumerate((y, cb, cr)):
-            lg = S["ctb_log2"] - (0 if plane == 0 else
-                                  (S["sub_w"].bit_length() - 1))
-            outp.append(sao_plane(p, sao_t[plane], sao_b[plane],
-                                  sao_o[plane], sao_e[plane], lg, bd))
-        y, cb, cr = outp
+        lg = S["ctb_log2"]
+        for k, p in enumerate(planes):
+            sub = (1, 1) if k == 0 else (S["sub_h"], S["sub_w"])
+            planes[k] = sao_plane(
+                p, sao_t[k], sao_b[k], sao_o[k], sao_e[k],
+                (lg - sub[0].bit_length() + 1, lg - sub[1].bit_length() + 1),
+                bd, edge_flags=sao_flags, nf=nf_y if k == 0 else nf_c)
     odt = torch.uint8 if bd <= 8 else torch.int16
-    flat = torch.cat([p.to(odt).reshape(-1) for p in (y, cb, cr)])
-    return (flat, pad_ref(y), pad_ref(cb), pad_ref(cr))
+    flat = torch.cat([p.to(odt).reshape(-1) for p in planes])
+    pads = [pad_ref(p) for p in planes]
+    pads += pads[:1] * (3 - len(pads))
+    return (flat, *pads)
 
 
 _FLAT_BANKS = {}
@@ -277,5 +307,7 @@ def finish_frame(pic, lay, poc, device):
         pic.sao_map = {}
     pic.has_sao = False
     pic.sao_arrays = None
-    shapes = tuple((h, w) for _oy, _ox, h, w in dict(spec)["regions"])
+    S = dict(spec)
+    regions = S["regions"][:1] if S["mono"] else S["regions"]
+    shapes = tuple((h, w) for _oy, _ox, h, w in regions)
     return (flat, shapes)

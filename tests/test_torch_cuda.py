@@ -256,6 +256,49 @@ def test_decoder_launches_each_inter_kernel_once_per_picture_on_card(card):
 
 
 # ---------------------------------------------------------------------------
+# whole streams of every single-layer format on the card, against the
+# port's inline NumPy decoder and the SEI MD5 (tests/torch_streams.py,
+# tests/torch_fuzz.py: the CPU tests' streams, made by the port's encoder)
+# ---------------------------------------------------------------------------
+
+def _decode_on_card(card, data, name):
+    from torch_streams import assert_same, decode_inline, decode_port
+    before = dict(build.launches)
+    got, n_prog = decode_port(data, card)
+    assert_same(decode_inline(data), got, name)
+    # every picture ran the frame program on the card
+    assert n_prog == len(got), (n_prog, name)
+    return {k: build.launches[k] - before[k] for k in ("mc", "resid_add")}
+
+
+def _stream_cases():
+    from torch_streams import CONFIGS, FORMATS, INLINE_ONLY
+    return sorted(CONFIGS) + sorted(INLINE_ONLY) + sorted(FORMATS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _stream_cases())
+def test_stream_decodes_on_card(card, name):
+    from torch_streams import CONFIGS, FORMATS, INLINE_ONLY, encode_config
+    if name in FORMATS:
+        data = FORMATS[name]()
+    else:
+        data = encode_config(*{**CONFIGS, **INLINE_ONLY}[name])
+    n = _decode_on_card(card, data, name)
+    if name in ("ipp_wpp", "inter_gop", "main10_422_filters",
+                "mono_inter_sao", "mono_dependent_ipp", "dep_two_dep_ipp"):
+        assert n["mc"] > 0 and n["resid_add"] > 0, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(56))
+def test_fuzz_config_decodes_on_card(card, seed):
+    from torch_fuzz import fuzz_stream
+    cfg, data = fuzz_stream(seed)
+    _decode_on_card(card, data, f"fuzz seed {seed}: {cfg}")
+
+
+# ---------------------------------------------------------------------------
 # the CABAC kernel (csrc/cabac.cu) and the probe kernels (csrc/probes.cu)
 # ---------------------------------------------------------------------------
 

@@ -92,9 +92,17 @@ def test_torch_backend_refuses_shvc_enhancement_layers():
 
 
 def test_torch_backend_refuses_pictures_without_native_records(monkeypatch):
-    cfg = EncoderConfig(width=64, height=64, qp=30, gop="ipp")
+    """It no longer does: with the native record stream off, the Python
+    syntax layer's plan becomes records (``native.plan_to_records``) and
+    the picture goes through the same pack and frame program."""
+    cfg = EncoderConfig(width=64, height=64, qp=30, gop="ipp",
+                        deblocking=True, sao=True)
     data = IntraEncoder(cfg).encode_frame(synth_frame("noise", 64, 64, 0,
                                                       seed=3))
+    want = Decoder(check_md5=True, recon_backend="inline").decode_bytes(data)
     monkeypatch.setenv("HEVC_TPU_NATIVE_PACK", "0")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TorchDecoder(device="cpu").decode_bytes(data)
+    got = TorchDecoder(check_md5=True, device="cpu").decode_bytes(data)
+    assert [f.md5_ok for f in got] == [True]
+    for p in range(3):
+        assert np.array_equal(np.asarray(got[0].planes[p]),
+                              np.asarray(want[0].planes[p]))

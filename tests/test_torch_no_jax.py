@@ -9,6 +9,7 @@ import sys
 import pytest
 
 from hevc_tpu_torch import native
+from torch_gate import native_ready
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,7 +50,7 @@ print("MODULES", len(mods), "BLOCKED", loaded, "RC", rc)
 """
 
 
-@pytest.mark.skipif(not native.available(),
+@pytest.mark.skipif(not native_ready(native),
                     reason="native toolchain unavailable")
 def test_port_decodes_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)

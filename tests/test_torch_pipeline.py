@@ -20,41 +20,18 @@ import torch
 
 from hevc_tpu import native
 from hevc_tpu.decoder.core import Decoder
-from hevc_tpu.encoder.core import EncoderConfig, IntraEncoder, RaEncoder
-from hevc_tpu.encoder.generate import synth_frame
 from hevc_tpu.tpu import pipeline as JP
 from hevc_tpu_torch import native as port_native
 from hevc_tpu_torch import pipeline as PP
 from hevc_tpu_torch.decoder import TorchDecoder
 from hevc_tpu_torch.pipeline import frame_program
 from hevc_tpu_torch.tables import dpb_from_numpy
+from torch_gate import native_ready
+from torch_streams import CONFIGS, INLINE_ONLY, encode_config
 
-pytestmark = pytest.mark.skipif(not native.available(),
+pytestmark = pytest.mark.skipif(not native_ready(native),
                                 reason="native toolchain unavailable")
 CPU = torch.device("cpu")
-
-CONFIGS = {
-    # the headline stream's settings at 96x80: IPP, WPP, deblock, SAO
-    "ipp_wpp": (dict(width=96, height=80, qp=30, gop="ipp", wpp=True,
-                     deblocking=True, sao=True, log2_ctb_size=5,
-                     log2_cu_size=5, search_range=3, seed=1), 3),
-    # tests/test_pipeline.py CONFIGS: bi prediction, explicit WP
-    "ra_filters": (dict(width=96, height=80, qp=31, gop="ra",
-                        deblocking=True, sao=True, split_policy="random",
-                        seed=2, max_transform_hierarchy_depth_intra=2), 8),
-    "wp": (dict(width=64, height=64, qp=30, gop="lowb",
-                weighted_pred=True, search_range=2), 6),
-}
-
-
-def _stream(cfg, n):
-    frames = [synth_frame("noise", cfg.width, cfg.height, t, seed=3)
-              for t in range(n)]
-    if cfg.gop == "ra":
-        return bytes(RaEncoder(cfg).encode(frames))
-    enc = IntraEncoder(cfg)
-    return b"".join(enc.encode_frame(f) for f in frames)
-
 
 def _planes(frames):
     return [([np.asarray(p) for p in f.planes], f.md5_ok, f.poc)
@@ -73,8 +50,7 @@ def decoded(name):
     records) of one config; each frame-program record holds the NumPy
     inputs and outputs of one JAX ``_pipeline_frame`` call, each native
     record a picture's (rec, lvl) in decode order."""
-    kw, n = CONFIGS[name]
-    stream = _stream(EncoderConfig(**kw), n)
+    stream = encode_config(*CONFIGS[name])
     inline = _planes(Decoder(check_md5=True,
                              recon_backend="inline").decode_bytes(stream))
     records, stage_a = [], []
@@ -119,8 +95,9 @@ def port_decoded(name):
 
     def finish(pic, lay, poc, device):
         stage_a.append(_records(pic))
-        packs.append((port_native.pack_frame_native(pic),
-                      native.pack_frame_native(pic)))
+        if pic.sps.chroma_format_idc:   # both PackedFrame packs need chroma
+            packs.append((port_native.pack_frame_native(pic),
+                          native.pack_frame_native(pic)))
         return orig_finish(pic, lay, poc, device)
 
     def program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
@@ -158,6 +135,18 @@ def test_frame_program_matches_jax(name):
                 f"{name} frame {k} padded ref {p}"
 
 
+def test_configs_reach_every_spec_feature():
+    """The JAX frame-program calls compared above include per-slice filter
+    maps, PCM/TQB exemption masks, a PCM canvas and 4:0:0."""
+    specs = {k: [(dict(r["spec"]), r["canvas0"]) for r in decoded(k)[3]]
+             for k in ("slices_pcm", "mono")}
+    sp = specs["slices_pcm"]
+    assert all(S["per_slice"] for S, _c in sp)
+    assert any(S["nf"] for S, _c in sp) and any(c.any() for _S, c in sp)
+    assert all(S["mono"] and S["do_deblock"] and S["do_sao"]
+               for S, _c in specs["mono"])
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_torch_decoder_matches_jax_and_inline(name):
     _stream_, inline, jax_frames = decoded(name)[:3]
@@ -166,7 +155,8 @@ def test_torch_decoder_matches_jax_and_inline(name):
     for (a, _ma, pa), (b, _mb, pb), (c, mc, pc) in zip(inline, jax_frames,
                                                        got):
         assert pa == pb == pc and mc is True
-        for p in range(3):
+        assert len(a) == len(b) == len(c)
+        for p in range(len(c)):
             assert np.array_equal(a[p], c[p]), f"{name} poc {pc} plane {p}"
             assert np.array_equal(b[p], c[p])
 
@@ -193,7 +183,7 @@ def _same(a, b):
     return a == b
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(set(CONFIGS) - {"mono"}))
 def test_pack_frame_native_matches_jax_package(name):
     packs = port_decoded(name)[2]
     assert packs
@@ -212,7 +202,7 @@ def test_resid_tus_lie_inside_the_canvas_and_are_disjoint(name):
     n_tu = 0
     for meta, canvas0, spec in port_decoded(name)[3]:
         S = dict(spec)
-        ch, cw = canvas0
+        ch, cw = canvas0 if isinstance(canvas0, tuple) else canvas0.shape
         pos = sum(S["n_chunks"] * b * 8 for b in S["B"]) \
             + sum(n * 9 for n in S["nlv"])
         cover = np.zeros((ch, cw), np.int32)
@@ -229,32 +219,10 @@ def test_resid_tus_lie_inside_the_canvas_and_are_disjoint(name):
     assert n_tu > 0
 
 
-# more formats of tests/test_pipeline.py CONFIGS, against the inline decoder
-INLINE_ONLY = {
-    "main10_422": (dict(width=64, height=48, qp=30, bit_depth=10,
-                        chroma_format_idc=2, gop="ipp"), 3),
-    "scaling": (dict(width=64, height=48, qp=30, scaling_lists="custom",
-                     gop="ipp"), 3),
-    "amp_qp": (dict(width=64, height=64, qp=30, gop="ra", amp="all",
-                    log2_ctb_size=5, cu_qp_delta_depth=1), 8),
-    "tmvp": (dict(width=64, height=64, qp=30, gop="lowb", tmvp=True), 6),
-}
-
-
 @pytest.mark.parametrize("name", sorted(INLINE_ONLY))
 def test_torch_decoder_matches_inline(name):
     kw, n = INLINE_ONLY[name]
-    cfg = EncoderConfig(**kw)
-    frames = [synth_frame("noise", cfg.width, cfg.height, t, seed=3)
-              for t in range(n)]
-    if cfg.bit_depth > 8:
-        frames = [[p.astype(np.int32) << (cfg.bit_depth - 8) for p in f]
-                  for f in frames]
-    if cfg.gop == "ra":
-        stream = bytes(RaEncoder(cfg).encode(frames))
-    else:
-        enc = IntraEncoder(cfg)
-        stream = b"".join(enc.encode_frame(f) for f in frames)
+    stream = encode_config(kw, n)
     want = _planes(Decoder(check_md5=True,
                            recon_backend="inline").decode_bytes(stream))
     got = _planes(TorchDecoder(check_md5=True,
@@ -279,8 +247,13 @@ def test_dpb_from_numpy_matches_pad_np():
 
 
 def test_unported_spec_features_raise():
+    """What the frame program leaves out on purpose: the TPU-aligned pack
+    layout and the sparse (COO) level upload."""
     rec = decoded("ipp_wpp")[3][0]
-    for key in ("mono", "per_slice", "nf"):
-        spec = tuple((k, True if k == key else v) for k, v in rec["spec"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_port(dict(rec, spec=spec))
+    spec = tuple((k, 1 if k == "pallas" else v) for k, v in rec["spec"])
+    with pytest.raises(NotImplementedError, match="Hopper, not TPU"):
+        run_port(dict(rec, spec=spec))
+    spec = tuple((k, (4, v[1]) if k == "coo" else v)
+                 for k, v in rec["spec"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        run_port(dict(rec, spec=spec))
