@@ -21,9 +21,9 @@
    versions on the captured rows of a real 1080p P frame and times them
    there with CUDA events and ``torch.profiler`` (after the counted run,
    which no profiler session may precede: see PERF.md).  The 1080p
-   streams are encoded once into ``.bench/`` by four worker processes
-   that start with the script and are done before the first 1080p
-   decode;
+   streams are encoded once into ``.bench/`` by worker processes, one a
+   stream, that start with the script and are done before the first
+   1080p decode;
 5. the formats phase: three more 1920x1080 IPP streams (``FORMATS``: A
    4:2:0 with 4 slices over 2x2 tiles without cross-tile filtering,
    per-slice deblocking parameters and PCM CUs exempt from the loop
@@ -35,7 +35,18 @@
    once per P picture and the residual add at least once; then holds both
    inter kernels against their plain versions on a captured P picture of
    the stream (tolerance 0) and prints fps and the stage split;
-6. the CABAC path: captures every WPP substream of that 1080p stream
+6. the SHVC phase: a two-layer stream (``SHVC_STREAM``: 1280x720 base
+   layer, 1920x1080 enhancement layer, 3 access units, TMVP from the
+   inter-layer reference), decoded by ``TorchDecoder`` with the kernels'
+   and the upsampler's inputs captured and the inter-layer build timed
+   with the card synchronised, then counted through ``cli.main -l 1``:
+   every MD5 of both layers, every picture through the frame program,
+   ``mc`` once per P picture of both layers, no reference from the host;
+   both inter kernels against their plain versions on a captured EL
+   picture, the upsampler and a CGS colour mapping on the card against
+   the CPU, and each layer's fps without the fetch
+   (``LazyPlanes.device_ready``);
+7. the CABAC path: captures every WPP substream of that 1080p stream
    with the port's Python engine (one row per substream) and
    encodes random row sets of 4,096 bins (R = 1, 8, 132, 1,024); the sets
    are all 68 substreams, the first 17 (one picture's rows), the random
@@ -50,7 +61,7 @@
    bound with its terms (``cabac.rows.chain_bound``, from the two
    latencies ``chain_latency_kernel`` measures and the card's highest SM
    clock);
-7. the probe path: with the launch counts at 0, runs
+8. the probe path: with the launch counts at 0, runs
    ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the roll of
    an 8K plane, the five TMA window cases of ``tools/probe_dma.py``, the
    2,880-block TMA pipeline and the pipeline over two 8192 x 8192
@@ -61,8 +72,10 @@
    map was encoded once per plane and box however many launches used it,
    and times each kernel beside its plain version and the one PyTorch
    call for the same function (by CUDA events here, and by
-   ``torch.profiler`` at the end), and each wrapper's host cost a call;
-8. prints the kernel table as JSON: per kernel its launches on the
+   ``torch.profiler`` at the end), each wrapper's host cost a call, and
+   the rate device copies reach in L2 (``probes.copy_rates``), over which
+   the TMA ring's bytes on the probe's planes give its bound there;
+9. prints the kernel table as JSON: per kernel its launches on the
    counted run, its error against the plain version, the kernel's, the
    plain version's and (where one PyTorch call computes the same
    function) that call's ms, and the bound: the largest of the bytes the
@@ -166,25 +179,81 @@ def format_path(name):
                         f"{FORMATS[name][1]}f_fmt{name[0]}.265")
 
 
+# the SHVC phase's two-layer stream: the SHM common test conditions' 1.5x
+# spatial configuration, a 1280x720 base layer under a 1920x1080
+# enhancement layer (an HD layer over a 720p base, as broadcasters send)
+SHVC_BL, SHVC_EL, SHVC_AUS = (1280, 720), (W, H), 3
+SHVC_STREAM = os.path.join(CACHE, f"smoke_shvc_1280x720_{W}x{H}_qp{QP}_"
+                           f"ctb64_tmvp_{SHVC_AUS}au.265")
+
+
+def decimate(plane, h, w):
+    """The plane sampled down to h x w (nearest sample)."""
+    return plane[np.arange(h) * plane.shape[0] // h][
+        :, np.arange(w) * plane.shape[1] // w]
+
+
+def synth_shvc(path, aus=SHVC_AUS):
+    """SHVC_STREAM: 4:2:0 8-bit, QP 30 on both layers, 64x64 CTBs,
+    deblocking and SAO, IPP, TMVP on both layers with the enhancement
+    layer's collocated picture the inter-layer reference (the upscaled
+    base-layer motion field); the base layer codes the enhancement layer's
+    picture decimated to 720p."""
+    from hevc_tpu_torch.encoder.core import EncoderConfig
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    from hevc_tpu_torch.encoder.shvc import ShvcEncoder
+
+    def cfg(wh, seed, **kw):
+        return EncoderConfig(width=wh[0], height=wh[1], qp=QP,
+                             log2_ctb_size=6, log2_cu_size=6,
+                             deblocking=True, sao=True, gop="ipp",
+                             search_range=3, tmvp=True, seed=seed, **kw)
+
+    enc = ShvcEncoder(cfg(SHVC_BL, 1), cfg(SHVC_EL, 2, tmvp_col_ref_idx=1))
+    (bw, bh), (ew, eh) = SHVC_BL, SHVC_EL
+    base = synth_frame("gradient", ew, eh, 0, seed=9)
+    data = bytearray()
+    for t in range(aus):
+        el = [np.roll(base[0], (t * 4, t * 7), (0, 1))] + [
+            np.roll(c, (t * 2, t * 3), (0, 1)) for c in base[1:]]
+        bl = [decimate(el[0], bh, bw)] + [decimate(c, bh // 2, bw // 2)
+                                          for c in el[1:]]
+        data += enc.encode_frame(bl, el)
+    tmp = path + f".{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+    return path
+
+
+def stream_jobs():
+    """{path: (function, arguments, keywords)} of every stream the smoke
+    decodes at 1080p."""
+    jobs = {STREAM: (synth_stream, (STREAM, W, H, QP, FRAMES), {})}
+    for name, (extra, frames) in FORMATS.items():
+        path = format_path(name)
+        jobs[path] = (synth_stream, (path, W, H, QP, frames), extra)
+    jobs[SHVC_STREAM] = (synth_shvc, (SHVC_STREAM,), {})
+    return jobs
+
+
 def start_streams(pool):
     """Encode every missing 1080p stream, each in a worker process of
     ``pool``: {path: (future or None, the time the encode started)}."""
     os.makedirs(CACHE, exist_ok=True)
-    jobs = {STREAM: (W, H, QP, FRAMES, {})}
-    for name, (extra, frames) in FORMATS.items():
-        jobs[format_path(name)] = (W, H, QP, frames, extra)
     return {path: (None if os.path.exists(path) else pool.submit(
-        synth_stream, path, w, h, qp, n, **extra), time.perf_counter())
-        for path, (w, h, qp, n, extra) in jobs.items()}
+        fn, *args, **kw), time.perf_counter())
+        for path, (fn, args, kw) in stream_jobs().items()}
 
 
 def wait_streams(started):
+    n = sum(fut is not None for fut, _t0 in started.values())
     for path, (fut, t0) in started.items():
         if fut is not None:
             fut.result()
             log(f"generated {os.path.relpath(path, ROOT)}: encoded in a "
                 f"worker process, ready {time.perf_counter() - t0:.1f} s "
-                "after the encodes started (the four ran side by side)")
+                f"after the encodes started (the {n} ran side by side)")
 
 
 # ---------------------------------------------------------------------------
@@ -328,22 +397,34 @@ def phase_random_kernels(dev):
 
 class Capture:
     """On an uncounted decode: records the inputs the frame program
-    hands each kernel wrapper, and times each stage of the frame program
-    with the device synchronised before and after (ms per call)."""
+    hands each kernel wrapper (and the picture, (layer, POC), each came
+    from) and the SHVC upsampler's inputs and outputs, and times each stage
+    of the frame program and of the inter-layer build with the device
+    synchronised before and after (ms per call)."""
 
     STAGES = ("frame_program", "residuals", "reconstruct_wavefront",
               "deblock", "deblock_luma", "sao_plane")
+    # the inter-layer reference's steps: (module, function, stage name)
+    IL = (("upsample", "color_map_frame", "il_color_map"),
+          ("upsample", "upsample_frame", "il_upsample"),
+          ("pipeline", "pad_dev_refs", "il_pad"))
 
     def __init__(self):
-        self.mc, self.resid = [], []
-        self.ms = {k: [] for k in self.STAGES + ("mc", "resid_add")}
+        self.mc, self.resid, self.mc_at, self.resid_at = [], [], [], []
+        self.upsample = []
+        self.at = None
+        self.ms = {k: [] for k in self.STAGES + ("mc", "resid_add")
+                   + tuple(k for _m, _f, k in self.IL)}
 
     @contextlib.contextmanager
     def installed(self):
         import torch
-        from hevc_tpu_torch import mc_cuda, pipeline
+        from hevc_tpu_torch import mc_cuda, pipeline, upsample
+        mods = {"pipeline": pipeline, "upsample": upsample}
         orig = {k: getattr(pipeline, k) for k in self.STAGES}
+        orig_il = {k: getattr(mods[m], f) for m, f, k in self.IL}
         orig_mc, orig_ra = mc_cuda.mc, mc_cuda.resid_add
+        orig_finish = pipeline.finish_frame
 
         def timed(fn, name):
             def run(*a, **k):
@@ -360,26 +441,47 @@ class Capture:
         def mc(canvas, refs_l, refs_c, groups, bd):
             self.mc.append((canvas.clone(), refs_l.clone(), refs_c.clone(),
                             [g[:6] + (np.array(g[6]),) for g in groups], bd))
+            self.mc_at.append(self.at)
             return mc_t(canvas, refs_l, refs_c, groups, bd)
 
         def resid_add(canvas, fields, pools, bd):
             self.resid.append((canvas.clone(), [f.clone() for f in fields],
                                [p.clone() for p in pools], bd))
+            self.resid_at.append(self.at)
             return ra_t(canvas, fields, pools, bd)
 
+        def finish(pic, lay, poc, device):
+            self.at = (lay.layer_id, poc)
+            return orig_finish(pic, lay, poc, device)
+
+        up_t = timed(orig_il["il_upsample"], "il_upsample")
+
+        def upsample_frame(planes, *a, **k):
+            out = up_t(planes, *a, **k)
+            self.upsample.append(([p.clone() for p in planes], a, k,
+                                  [p.clone() for p in out]))
+            return out
+
         mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
+        pipeline.finish_frame = finish
         for k, fn in orig.items():
             setattr(pipeline, k, timed(fn, k))
+        for m, f, k in self.IL:
+            setattr(mods[m], f, upsample_frame if k == "il_upsample"
+                    else timed(orig_il[k], k))
         try:
             yield self
         finally:
             mc_cuda.mc, mc_cuda.resid_add = orig_mc, orig_ra
+            pipeline.finish_frame = orig_finish
             for k, fn in orig.items():
                 setattr(pipeline, k, fn)
+            for m, f, k in self.IL:
+                setattr(mods[m], f, orig_il[k])
 
     def report(self):
         return "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v)
-                         for k, v in self.ms.items())
+                         for k, v in self.ms.items() if v)
 
 
 def bound_ms(n_bytes, n_ops, chain_ms=0.0):
@@ -514,14 +616,16 @@ def phase_real_kernels(cap, dev):
                           bound_ms(ra_b, ra_ops))}
 
 
-def captured_kernel_errors(cap, dev):
-    """(mc_err, resid_add_err): each kernel against its plain version on
-    the captured inputs of the P picture with the most MC rows."""
+def captured_kernel_errors(cap, dev, layer=None):
+    """(mc_err, resid_add_err, (layer, POC)): each kernel against its plain
+    version on the captured inputs of the P picture (of ``layer``, if
+    given) with the most MC rows."""
     import torch
     from hevc_tpu_torch import mc_cuda
     from hevc_tpu_torch.mc import mc_plain, resid_add_plain
     from hevc_tpu_torch.tables import tables_from_reference
-    k = max(range(len(cap.mc)),
+    k = max((i for i, at in enumerate(cap.mc_at)
+             if layer is None or at[0] == layer),
             key=lambda i: sum(g[6].shape[0] for g in cap.mc[i][3]))
     canvas, refs_l, refs_c, groups, bd = cap.mc[k]
     table = mc_cuda.mc_table(groups, canvas.shape)
@@ -531,21 +635,23 @@ def captured_kernel_errors(cap, dev):
                     mc_cuda.table_groups(table, rows), bd,
                     tables_from_reference(dev))
     mc_err = int((got - want).abs().max())
-    # the residual add runs on every picture, MC on the P pictures, which
-    # follow the I picture: the same picture's residual inputs
-    canvas, fields, pools, bd = cap.resid[k + len(cap.resid) - len(cap.mc)]
+    # the same picture's residual inputs
+    at = cap.mc_at[k]
+    canvas, fields, pools, bd = cap.resid[cap.resid_at.index(at)]
     got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
     want = resid_add_plain(canvas.clone(), fields, pools, bd)
-    return mc_err, int((got - want).abs().max())
+    return mc_err, int((got - want).abs().max()), at
 
 
 def counted_decode(decode, dev, pipeline, trace, build):
-    """``decode()`` once, counted: launch counts and the trace from 0 just
-    before, read just after.  For each picture through the frame program it
-    records where its output and DPB entries lie, whether it is inter, its
-    planes, PCM records and slices, and whether its stage A ran in the
-    Python syntax layer; every output and DPB entry must be on ``dev``.
-    Returns (decode's result, seen, counts, split, wall seconds)."""
+    """``decode()`` once, counted: launch counts, the trace and the count of
+    references resolved from the host from 0 just before, read just after.
+    For each picture through the frame program it records its layer, where
+    its output and DPB entries lie, whether it is inter, its planes, PCM
+    records and slices, and whether its stage A ran in the Python syntax
+    layer; every output and DPB entry must be on ``dev``, and every
+    reference must come from the device DPB.  Returns (decode's result,
+    seen, counts, split, wall seconds)."""
     from hevc_tpu_torch import native as N
     seen = []
     orig_finish = pipeline.finish_frame
@@ -553,6 +659,7 @@ def counted_decode(decode, dev, pipeline, trace, build):
     def finish(pic, lay, poc, device):
         out = orig_finish(pic, lay, poc, device)
         seen.append(dict(
+            layer=lay.layer_id,
             devices={out[0].device.type} | {
                 t.device.type for t in lay.dpb_dev[poc]},
             inter=bool(getattr(pic, "ref_list_l0", None)
@@ -566,6 +673,7 @@ def counted_decode(decode, dev, pipeline, trace, build):
     pipeline.finish_frame = finish
     trace.reset()
     build.reset_launches()
+    pipeline.host_refs["count"] = 0
     t0 = time.perf_counter()
     try:
         result = decode()
@@ -576,6 +684,8 @@ def counted_decode(decode, dev, pipeline, trace, build):
     split = trace.report()
     assert all(s["devices"] == {dev.type} for s in seen), \
         f"outputs or DPB entries not on the card: {seen}"
+    assert pipeline.host_refs["count"] == 0, \
+        f"{pipeline.host_refs['count']} references resolved from the host"
     return result, seen, counts, split, wall
 
 
@@ -618,7 +728,7 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
         assert all(s["from_plan"] for s in seen), "B: native records?"
     if fmt == "C":
         assert all(s["planes"] == 1 for s in seen)
-    mc_err, ra_err = captured_kernel_errors(cap, dev)
+    mc_err, ra_err, _at = captured_kernel_errors(cap, dev)
     assert mc_err == 0 and ra_err == 0, \
         f"{name}: kernels != plain ({mc_err}, {ra_err})"
     torch.cuda.synchronize()
@@ -633,6 +743,128 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
         "ms/frame: " + ", ".join(f"{k} {v['total_s'] * 1e3 / n_frames}"
                                  for k, v in sorted(split.items())))
     log(f"format {name}, captured run, stages synchronised, ms per call: "
+        f"{cap.report()} ({smi})")
+
+
+# tests/test_cgs.py DELTAS1: the colour-mapping LUT the SHVC phase times
+CGS_DELTAS = {(0, 0, 0, 0): (-3, 0, 1), (0, 0, 0, 3): (2, -1, 0),
+              (0, 1, 0, 1): (4, 2, -2), (1, 0, 1, 2): (-2, 3, 1),
+              (1, 1, 1, 3): (1, 1, 1)}
+
+
+def phase_shvc(dev, smi, cli, decoder, pipeline, trace, build):
+    """SHVC_STREAM on the card: a captured ``TorchDecoder`` run (every MD5
+    of both layers; kernel and upsampler inputs; stages and the inter-layer
+    build timed with the card synchronised), a counted ``cli.main -l 1``
+    run (every EL MD5, every picture of both layers through the frame
+    program, ``mc`` once per P picture, no reference from the host), both
+    inter kernels against their plain versions on a captured EL picture,
+    the upsampler and the CGS colour mapping on the card against the CPU,
+    and each layer's fps without the fetch (``LazyPlanes.device_ready``).
+    """
+    import torch
+    from hevc_tpu_torch import upsample as UP
+    from hevc_tpu_torch.bitstream.bits import BitWriter
+    from hevc_tpu_torch.ops.cgs import CgsLut, write_cgs_lut
+    data = open(SHVC_STREAM, "rb").read()
+    n = SHVC_AUS
+    cap = Capture()
+    os.environ["HEVC_TPU_ASYNC_PACK"] = "0"
+    try:
+        with cap.installed():
+            frames = decoder.TorchDecoder(check_md5=True,
+                                          device=dev).decode_bytes(data)
+            md5 = {(f.layer, f.poc): f.md5_ok for f in frames}
+    finally:
+        os.environ.pop("HEVC_TPU_ASYNC_PACK")
+    assert len(frames) == 2 * n and md5 == {
+        (lay, poc): True for lay in (0, 1) for poc in range(n)}, \
+        f"SHVC: MD5 of the captured run {md5}"
+    assert len(cap.upsample) == n and not cap.ms["il_color_map"]
+
+    buf = io.StringIO()
+
+    def decode():
+        with contextlib.redirect_stdout(buf):
+            return cli.main(["-i", SHVC_STREAM, "-l", "1", "-v", "40",
+                             "--device", "cuda"])
+
+    rc, seen, counts, split, wall = counted_decode(
+        decode, dev, pipeline, trace, build)
+    out = buf.getvalue()
+    n_inter = sum(s["inter"] for s in seen)
+    assert rc == 0 and out.count("Correct MD5") == n, out
+    assert [s["layer"] for s in seen] == [0, 1] * n, seen
+    assert n_inter == 2 * n - 1 and not seen[0]["inter"], seen
+    assert counts["mc"] == n_inter and 0 < counts["resid_add"] <= n_inter, \
+        f"SHVC: launches {counts} for {n_inter} P pictures"
+
+    mc_err, ra_err, at = captured_kernel_errors(cap, dev, layer=1)
+    assert mc_err == 0 and ra_err == 0, \
+        f"SHVC: kernels != plain on EL picture {at} ({mc_err}, {ra_err})"
+    up_err = 0
+    for planes, a, k, il in cap.upsample:
+        assert il[0].shape == (SHVC_EL[1], SHVC_EL[0]), il[0].shape
+        cpu = UP.upsample_frame([p.cpu() for p in planes], *a, **k)
+        up_err = max([up_err] + [int((c - o.cpu()).abs().max())
+                                 for c, o in zip(cpu, il)])
+    assert up_err == 0, f"SHVC: upsampler on the card != CPU ({up_err})"
+    cgs = CgsLut(octant_depth=1, y_part_num_log2=1, res_quant_bit=1,
+                 flc_bits=2, adapt_threshold_u_delta=5,
+                 adapt_threshold_v_delta=-3)
+    write_cgs_lut(BitWriter(), cgs, deltas=CGS_DELTAS)
+    planes, a, k, il = cap.upsample[-1]
+    cm_err = max(int((c - o.cpu()).abs().max()) for c, o in zip(
+        UP.color_map_frame(cgs, [p.cpu() for p in planes]),
+        UP.color_map_frame(cgs, planes)))
+    assert cm_err == 0, f"SHVC: colour mapping on the card != CPU ({cm_err})"
+    ev = {"colour map": cuda_ms(lambda: UP.color_map_frame(cgs, planes),
+                                iters=10),
+          "upsample": cuda_ms(lambda: UP.upsample_frame(planes, *a, **k),
+                              iters=10),
+          "pad": cuda_ms(lambda: pipeline.pad_dev_refs(il), iters=10)}
+
+    def ready_decode(target_layer):
+        """(pictures, seconds) of a decode timed to the card's last
+        picture without fetching one (no MD5 check)."""
+        t0 = time.perf_counter()
+        frames = decoder.TorchDecoder(
+            check_md5=False, device=dev,
+            target_layer=target_layer).decode_bytes(data)
+        for f in frames:
+            f.planes.device_ready()
+        return len(frames), time.perf_counter() - t0
+
+    n_bl, t_bl = ready_decode(0)
+    n_all, t_all = ready_decode(1)
+    assert n_bl == n and n_all == 2 * n, (n_bl, n_all)
+    torch.cuda.synchronize()
+    fp = cap.ms["frame_program"]
+    il_au = [u + p for u, p in zip(cap.ms["il_upsample"], cap.ms["il_pad"])]
+    log(f"SHVC {SHVC_BL[0]}x{SHVC_BL[1]} -> {SHVC_EL[0]}x{SHVC_EL[1]}, "
+        f"{n} access units: every MD5 of both layers correct, every "
+        f"picture of both layers through the frame program, outputs and "
+        f"DPB on the card, 0 references from the host, launches {counts} "
+        f"for {n_inter} P pictures; mc_kernel and resid_add_kernel == plain "
+        f"on EL picture {at} (error {mc_err}, {ra_err}); upsampler card == "
+        f"CPU on the {n} captured base-layer pictures, CGS colour mapping "
+        f"card == CPU (error {up_err}, {cm_err})")
+    log(f"SHVC inter-layer build, ms per access unit, card synchronised "
+        f"(captured run): upsample {cap.ms['il_upsample']}, pad "
+        f"{cap.ms['il_pad']}, colour map not in this stream; total "
+        f"{il_au} against the EL picture's frame program {fp[1::2]} and the "
+        f"BL's {fp[0::2]} ({smi})")
+    log(f"SHVC inter-layer build, ms per call (CUDA events, the captured "
+        f"base-layer picture of access unit {n - 1}): {ev} ({smi})")
+    log(f"SHVC fps without the fetch (LazyPlanes.device_ready, no MD5): "
+        f"base layer alone {n / t_bl} fps ({t_bl:.3f} s), both layers "
+        f"{n / t_all} access units a second ({t_all:.3f} s); counted "
+        f"cli.main -l 1 with the MD5 fetch {n / wall} access units a second "
+        f"({wall:.3f} s) ({smi})")
+    log("SHVC trace split of the counted run, ms per access unit: " + ", "
+        .join(f"{k} {v['total_s'] * 1e3 / n}" for k, v in sorted(
+            split.items())))
+    log(f"SHVC captured run, stages synchronised, ms per call: "
         f"{cap.report()} ({smi})")
 
 
@@ -878,6 +1110,17 @@ def phase_probes(dev, smi):
             "tma_window": 2 * wh * ww * 4,
             "tma_pipe": probes.pipe_bytes(big_org) + org.numel() * 4}
     bounds = {k: bound_ms(v, 0) for k, v in work.items()}
+    # the pipe on the probe's plane stays in L2: its bound is the bytes
+    # over the L2's rate as a graph of repeated device copies measures it
+    rates = probes.copy_rates(dev)
+    l2 = max(rates[n] for n in probes.L2_BUFFERS)
+    org_small = probes.pipe_origins()
+    pipe_l2 = (probes.pipe_bytes(org_small) + org_small.numel() * 4) / l2 * 1e3
+    log(f"copy rates, GB/s by buffer bytes (dst.copy_(src), 50 copies in a "
+        f"CUDA graph): { {n: r / 1e9 for n, r in rates.items()} }; "
+        f"tma_pipe on the probe's {probes.PIPE_PLANE} planes: L2 bound "
+        f"{pipe_l2} ms (bytes) against {times['tma_pipe'][0]} ms "
+        f"({pipe_l2 / times['tma_pipe'][0]:.3f} of it) ({smi})")
     ms8k = times["tile_shift_8k"][0]
     log(f"tile_shift 4320x7680: {ms8k} ms, bytes bound "
         f"{bounds['tile_shift 4320x7680'][0]} ms "
@@ -914,7 +1157,8 @@ def main():
     # and the first phases run; the workers are gone before the first 1080p
     # decode, so that nothing of theirs runs beside a timed phase
     dev = torch.device("cuda", 0)
-    with ProcessPoolExecutor(4, mp_context=mp.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(len(stream_jobs()),
+                             mp_context=mp.get_context("spawn")) as pool:
         started = start_streams(pool)
         prepare(dev)
         wait_streams(started)
@@ -990,6 +1234,7 @@ def run(smi, dev):
     real = phase_real_kernels(cap, dev)
     for name in FORMATS:
         phase_format(name, dev, smi, decoder, pipeline, trace, build)
+    phase_shvc(dev, smi, cli, decoder, pipeline, trace, build)
     kernels = []
     for name, line in (("mc", 161), ("resid_add", 356)):
         err, ms, plain_ms, bound = real[name]

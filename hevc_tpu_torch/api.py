@@ -203,8 +203,8 @@ def oh_init_lhvc(nb_shards: int = 1, thread_type: int = OH_THREAD_SLICE,
                  device=None) -> OHHandle:
     """Layered (SHVC) session (openhevc.h:174 oh_init_lhvc) on ``device``.
 
-    The port's stage B does not decode SHVC enhancement layers yet
-    (ROADMAP Queue 1 item 7): a stream that has one raises
-    NotImplementedError at its first enhancement-layer picture.  Base-layer
-    streams, and temporal selection on them, decode as with ``oh_init``."""
+    Decodes the base layer and the enhancement layer; the inter-layer
+    reference is upsampled (and colour-mapped, with CGS) from the base
+    layer's device DPB on ``device``.  Each picture out is the highest
+    decoded layer's (``select_active_layer`` caps it)."""
     return OHHandle(nb_shards, thread_type, layers=2, device=device)

@@ -1357,10 +1357,10 @@ class Decoder:
         port's frame program (``pipeline.finish_frame``), on ``device``
         (``None`` = the current CUDA device; 'cpu' runs the kernels'
         plain versions); a picture whose stage A ran in the Python syntax
-        layer gives its plan as native records (``native.plan_to_records``),
-        except 4:0:0, which the NumPy executor reconstructs as in the
-        reference.  SHVC enhancement layers raise under 'torch' (not
-        ported yet).
+        layer gives its plan as native records (``native.plan_to_records``);
+        an SHVC enhancement layer's inter-layer reference is built from the
+        base layer's device DPB on the device
+        (``pipeline.inter_layer_ref``).
         target_layer/temporal_layer: decode-up-to selectors (the
         quality_layer_id / temporal-layer-id AVOptions of the
         reference, hevcdec.c:4642-4668)."""
@@ -1572,10 +1572,6 @@ class Decoder:
         """EL frame start: rendezvous with the base layer and build the
         inter-layer reference by whole-frame upsampling (reference:
         hevcdec.c:3597-3637; upsampling hevc_filter.c / hevcdsp)."""
-        if self.recon_backend == "torch":
-            raise NotImplementedError(
-                "hevc_tpu_torch: SHVC enhancement layers are ROADMAP Queue 1 "
-                "item 7")
         vps = self.vps_map[sps.vps_id]
         ext = vps.vps_ext
         ref_lid = ext.ref_layer_id[lay.layer_id][0]
@@ -1593,17 +1589,29 @@ class Decoder:
         # upsampling (reference: hevcdec.c:3627-3629 colorMapping +
         # upsample_base_layer_frame of the mapped frame)
         cgs = getattr(self.pps_map[sh.pps_id], "cgs_lut", None)
-        if cgs is not None:
-            from ..ops.cgs import color_map_frame
-            bl_planes = color_map_frame(cgs, [np.asarray(p)
-                                              for p in bl_planes])
-            bl_bd = cgs.out_bd_y
-        from ..ops.upsample import upsample_frame
-        il = upsample_frame(
-            bl_planes, sps.width, sps.height,
-            sub_w=sps.sub_w, sub_h=sps.sub_h,
-            bl_bit_depth=bl_bd,
-            el_bit_depth=sps.bit_depth_luma)
+        if self.recon_backend == "torch":
+            # BL -> EL device to device, one job on the ordered pack
+            # worker: it runs after the BL picture's frame program (which
+            # wrote bl.dpb_dev[bl_poc]), before the BL's next eviction and
+            # before this EL picture's frame program, which resolves the
+            # IL reference from lay.dpb_dev[bl_poc] and then replaces it
+            # with its own output (the same POC)
+            from ..pipeline import LazyPlanes, inter_layer_ref
+            il = LazyPlanes(self._pack_submit(
+                inter_layer_ref, bl.dpb_dev, lay.dpb_dev, bl_poc, cgs, sps,
+                bl_bd))
+        else:
+            if cgs is not None:
+                from ..ops.cgs import color_map_frame
+                bl_planes = color_map_frame(cgs, [np.asarray(p)
+                                                  for p in bl_planes])
+                bl_bd = cgs.out_bd_y
+            from ..ops.upsample import upsample_frame
+            il = upsample_frame(
+                bl_planes, sps.width, sps.height,
+                sub_w=sps.sub_w, sub_h=sps.sub_h,
+                bl_bit_depth=bl_bd,
+                el_bit_depth=sps.bit_depth_luma)
         lay.il_ref = (bl_poc, il)
         # inter-layer motion field for TMVP from the IL ref (set_mfm;
         # zeroed at EL IRAP — reference: hevc_refs.c:733-755)

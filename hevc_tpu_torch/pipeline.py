@@ -4,9 +4,11 @@ Port of ``hevc_tpu/tpu/pipeline.py``: ``frame_program`` is
 ``_pipeline_frame`` (residuals -> MC kernel -> residual-add kernel ->
 intra wavefront -> deblocking -> SAO, then edge-padding of the planes into
 the device DPB and one fused output buffer), ``finish_frame`` is
-``finish_frame_pipeline`` and ``LazyPlanes`` the deferred host fetch.
-Reference planes stay on the device between frames; only the packed
-metadata goes up and only the fused output comes back.
+``finish_frame_pipeline``, ``LazyPlanes`` the deferred host fetch and
+``pad_dev_refs`` seeds a device DPB from device planes (the SHVC
+inter-layer reference).  Reference planes stay on the device between
+frames; only the packed metadata goes up and only the fused output comes
+back.
 """
 from __future__ import annotations
 
@@ -18,14 +20,20 @@ import torch
 from . import mc_cuda
 from . import native as N
 from . import trace
+from . import upsample as UP
 from .coding.picture import crop_conf_win
 from .filters import deblock, deblock_luma, sao_plane
 from .intra import chunk_counts, reconstruct_wavefront
-from .pack import pack_frame
+from .pack import PAD_REF, pack_frame
 from .recon import residuals
-from .tables import dpb_from_numpy, pad_ref, tables_from_reference
+from .tables import dpb_from_numpy, pad_refs, tables_from_reference
 
 I32 = torch.int32
+
+# references ``finish_frame`` took from host planes because the device DPB
+# lacked them (a concealed or never-decoded picture); every decoded
+# reference, the SHVC inter-layer one included, resolves on the device
+host_refs = {"count": 0}
 
 # spec features the frame program leaves out on purpose
 _UNPORTED = (
@@ -186,9 +194,7 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
                 bd, edge_flags=sao_flags, nf=nf_y if k == 0 else nf_c)
     odt = torch.uint8 if bd <= 8 else torch.int16
     flat = torch.cat([p.to(odt).reshape(-1) for p in planes])
-    pads = [pad_ref(p) for p in planes]
-    pads += pads[:1] * (3 - len(pads))
-    return (flat, *pads)
+    return (flat, *pad_refs(planes))
 
 
 _FLAT_BANKS = {}
@@ -208,14 +214,63 @@ def _scale_bank_dev(pic, device):
     return got
 
 
+def pad_dev_refs(planes, aligned=False):
+    """Device planes -> PAD_REF-padded int32 reference planes on their
+    device, with no host round trip (the SHVC inter-layer reference seeds
+    the EL's device DPB this way); the twin of ``tables.dpb_from_numpy``.
+    ``aligned`` is the reference's TPU layout, which the port refuses as
+    ``_UNPORTED``'s ``pallas``."""
+    if aligned:
+        raise NotImplementedError(f"hevc_tpu_torch: {_UNPORTED[0][1]}")
+    return pad_refs(planes)
+
+
+def inter_layer_ref(bl_dpb_dev, el_dpb_dev, bl_poc, cgs, el_sps, bl_bd):
+    """The SHVC inter-layer reference of one EL picture, device to device.
+
+    Runs on the decoder's ordered pack worker, after the base layer's frame
+    program for ``bl_poc``: takes the interior of that picture's padded
+    planes in ``bl_dpb_dev`` (its coded size), colour-maps them through
+    the PPS 3D-LUT ``cgs`` if there is one, upsamples them to the EL's
+    coded size and seeds ``el_dpb_dev[bl_poc]`` with the padded result.
+    Returns the unpadded inter-layer planes."""
+    pads = bl_dpb_dev.get(bl_poc)
+    if pads is None:
+        raise RuntimeError(
+            f"hevc_tpu_torch: base-layer picture poc {bl_poc} is not in the "
+            "base layer's device DPB; the inter-layer reference is built "
+            "on the device only")
+    planes = [p[PAD_REF:-PAD_REF, PAD_REF:-PAD_REF] for p in pads]
+    if cgs is not None:
+        with trace.span("il_color_map"):
+            planes = UP.color_map_frame(cgs, planes)
+        bl_bd = cgs.out_bd_y
+    with trace.span("il_upsample"):
+        il = UP.upsample_frame(planes, el_sps.width, el_sps.height,
+                               sub_w=el_sps.sub_w, sub_h=el_sps.sub_h,
+                               bl_bit_depth=bl_bd,
+                               el_bit_depth=el_sps.bit_depth_luma)
+    with trace.span("il_pad"):
+        el_dpb_dev[bl_poc] = pad_dev_refs(il)
+    return il
+
+
+def _fused(dev):
+    """Whether ``dev`` is the frame program's ``(flat, ((h, w), ...))``
+    form rather than a sequence of planes."""
+    return (len(dev) == 2 and isinstance(dev[1], tuple) and bool(dev[1])
+            and isinstance(dev[1][0], tuple))
+
+
 class LazyPlanes:
     """List-like deferred fetch of a frame's device planes.
 
-    Wraps the fused ``(flat_buffer, ((h, w), ...))`` form, or a Future
-    resolving to it (the pack worker's handle).  The planes are fetched to
-    NumPy (uint8, or uint16 past 8 bits) on first element access and
-    cached; ``crop`` is the SPS for conformance-window cropping and
-    ``dtype`` converts on materialisation (the DPB wants int32)."""
+    Wraps the fused ``(flat_buffer, ((h, w), ...))`` form, a sequence of
+    device planes (the SHVC inter-layer reference), or a Future resolving
+    to either (the pack worker's handle).  The planes are fetched to NumPy
+    (the fused buffer as uint8, or uint16 past 8 bits) on first element
+    access and cached; ``crop`` is the SPS for conformance-window cropping
+    and ``dtype`` converts on materialisation (the DPB wants int32)."""
 
     __slots__ = ("_dev", "_np", "_crop", "_dtype", "_lock")
 
@@ -230,12 +285,25 @@ class LazyPlanes:
         dev = self._dev
         return dev.result() if hasattr(dev, "result") else dev
 
+    def device_ready(self):
+        """Block until the frame's device work is enqueued and done, moving
+        no pixels to the host (the benchmarks' synchronisation point): waits
+        on the pack worker's future, then on the card."""
+        dev = self._resolved()
+        if dev is None:
+            return  # already materialised
+        t = dev[0]
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+
     def device_planes(self):
         """The planes as device tensors (views of the fused buffer), or
         None once materialised."""
         dev = self._resolved()
         if dev is None:
             return None
+        if not _fused(dev):
+            return list(dev)
         planes, off = [], 0
         for h, w in dev[1]:
             planes.append(dev[0][off:off + h * w].view(h, w))
@@ -246,14 +314,18 @@ class LazyPlanes:
         with self._lock:
             if self._np is None:
                 dev = self._resolved()
-                with trace.span("fetch"):
-                    buf = dev[0].cpu().numpy()
-                if buf.dtype == np.int16:
-                    buf = buf.view(np.uint16)
-                planes, off = [], 0
-                for h, w in dev[1]:
-                    planes.append(buf[off:off + h * w].reshape(h, w))
-                    off += h * w
+                if _fused(dev):
+                    with trace.span("fetch"):
+                        buf = dev[0].cpu().numpy()
+                    if buf.dtype == np.int16:
+                        buf = buf.view(np.uint16)
+                    planes, off = [], 0
+                    for h, w in dev[1]:
+                        planes.append(buf[off:off + h * w].reshape(h, w))
+                        off += h * w
+                else:
+                    with trace.span("fetch"):
+                        planes = [d.cpu().numpy() for d in dev]
                 if self._dtype is not None:
                     planes = [p.astype(self._dtype) for p in planes]
                 if self._crop is not None:
@@ -268,7 +340,8 @@ class LazyPlanes:
     def __len__(self):
         if self._np is not None:
             return len(self._np)
-        return len(self._resolved()[1])
+        dev = self._resolved()
+        return len(dev[1]) if _fused(dev) else len(dev)
 
     def __iter__(self):
         return iter(self._mat())
@@ -290,6 +363,7 @@ def finish_frame(pic, lay, poc, device):
         for entry in lst:
             pads = dpb_dev.get(entry[0])
             if pads is None:  # concealed / never-decoded reference
+                host_refs["count"] += 1
                 pads = dpb_from_numpy([np.asarray(p) for p in entry[1]],
                                       device)
             refs_y.append(pads[0])

@@ -614,6 +614,39 @@ def time_probes(dev):
     return {k: (v, plain[k]) for k, v in ms.items()}, host
 
 
+# int32 buffer sizes (bytes) whose copy, source and destination together,
+# fits the card's 50 MB L2 (on an H100 the rate rose up to 12 MB, as each
+# copy's fixed cost shrinks against its bytes, and fell beyond, as the
+# pair outgrows what L2 keeps); and one far larger, for device memory
+L2_BUFFERS = (4 << 20, 8 << 20, 12 << 20, 16 << 20, 20 << 20)
+HBM_BUFFER = 512 << 20
+
+
+def copy_rates(dev, reps=50):
+    """{buffer bytes: bytes a second} of ``dst.copy_(src)`` on the card:
+    ``reps`` copies captured in one CUDA graph (one launch for all) and
+    replayed, timed by CUDA events; each copy reads and writes the buffer
+    once.  The largest rate over ``L2_BUFFERS`` is the L2's rate as a copy
+    reaches it, the rate of ``tma_pipe``'s bound on ``PIPE_PLANE`` (a
+    kernel may move data faster: it is not the L2's peak);
+    ``HBM_BUFFER`` checks the method against device memory's."""
+    out = {}
+    for n in L2_BUFFERS + (HBM_BUFFER,):
+        src = torch.arange(n // 4, dtype=torch.int32, device=dev)
+        dst = torch.empty_like(src)
+        dst.copy_(src)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                dst.copy_(src)
+        ms = cuda_ms(graph.replay, iters=10, warmup=2) / reps
+        if not torch.equal(dst, src):
+            raise RuntimeError("copy_rates: the copy is wrong")
+        out[n] = 2 * n / (ms * 1e-3)
+        del graph, src, dst
+    return out
+
+
 def time_window_plans(dev, bands=(40, 20, 16, 8, 4, 2)):
     """{plan: (events ms, device ms)} of ``tma_window_kernel`` on the
     (40, 128) odd-offset read under each band height, with one box of
@@ -683,6 +716,13 @@ def main(argv=None) -> int:
         print(f"{k}: {ms / pipe.shape[0] * 1e3:.4f} us/block, "
               f"{pipe_bytes(pipe) / ms / 1e6:.1f} GB/s ({card})")
     print(f"host us a call: {host} ({card})")
+    rates = copy_rates(dev)
+    l2 = max(rates[n] for n in L2_BUFFERS)
+    pipe = pipe_origins()
+    print(f"copy rates, GB/s by buffer bytes: "
+          f"{ {n: r / 1e9 for n, r in rates.items()} }; tma_pipe on "
+          f"{PIPE_PLANE}: L2 bound {pipe_bytes(pipe) / l2 * 1e3:.5f} ms "
+          f"against {times['tma_pipe'][0]:.5f} ms ({card})")
     return 0
 
 

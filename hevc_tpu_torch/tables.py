@@ -84,12 +84,19 @@ def pad_ref(plane: torch.Tensor) -> torch.Tensor:
                     PAD_REF)
 
 
-def dpb_from_numpy(planes, device) -> tuple:
-    """Host planes -> the port's PAD_REF-padded int32 reference planes on
-    ``device`` (the mirror of ``pipeline._pad_np`` with ``aligned=False``).
-    A single (monochrome) plane is aliased into all three slots."""
-    pads = tuple(pad_ref(torch.from_numpy(np.asarray(p, np.int32))
-                         .to(device)) for p in planes)
+def pad_refs(planes) -> tuple:
+    """Planes (tensors) -> the port's three PAD_REF-padded int32 reference
+    planes on their device; a single (monochrome) plane is aliased into
+    all three slots."""
+    pads = tuple(pad_ref(p) for p in planes)
     if len(pads) == 1:
         pads = (pads[0], pads[0], pads[0])
     return pads
+
+
+def dpb_from_numpy(planes, device) -> tuple:
+    """Host planes -> the port's reference planes on ``device`` (the mirror
+    of ``pipeline._pad_np`` with ``aligned=False``; ``pipeline.pad_dev_refs``
+    is its device-to-device twin)."""
+    return pad_refs([torch.from_numpy(np.asarray(p, np.int32)).to(device)
+                     for p in planes])

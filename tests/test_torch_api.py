@@ -98,6 +98,32 @@ def test_temporal_selection():
     assert 0 < n < 8
 
 
+def test_lhvc_handle_returns_enhancement_layer_frames():
+    """oh_init_lhvc decodes both layers of an SHVC stream and gives out the
+    enhancement layer's pictures (beside a base-layer picture whose POC had
+    no EL picture yet when it was bumped, as openhevc.c:553-562 selects),
+    each with its MD5 true and equal to the inline decoder's."""
+    from torch_streams import shvc_stream
+    data = shvc_stream("x1_5")
+    want = [f for f in Decoder(check_md5=True).decode_bytes(data)
+            if f.layer == 1]
+    hdl = api.oh_init_lhvc(device=CPU)
+    hdl.enable_sei_checksum(True)
+    hdl.start()
+    got = []
+    for ret in [hdl.decode(data)] + [(True, f) for f in hdl.close()]:
+        if ret[0]:
+            assert ret[1].md5_ok is True
+            got.append(ret[1])
+    got = [f for f in got if f.info.width == 96]
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert a.md5_ok is True
+        assert (a.info.width, a.info.height) == (96, 96)
+        for pa, pb in zip(a.planes, b.planes):
+            assert np.array_equal(np.asarray(pa), np.asarray(pb))
+
+
 def test_log_control():
     seen = []
     api.OHHandle.set_log_callback(lambda lvl, msg: seen.append((lvl, msg)))

@@ -298,6 +298,28 @@ def test_fuzz_config_decodes_on_card(card, seed):
     _decode_on_card(card, data, f"fuzz seed {seed}: {cfg}")
 
 
+def _shvc_cases():
+    from torch_streams import SHVC
+    return sorted(SHVC)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _shvc_cases())
+def test_shvc_stream_decodes_on_card(card, name):
+    """Both layers of a two-layer stream (tests/test_shvc.py and
+    tests/test_cgs.py configurations) on the card: equal to the inline
+    decoder, every MD5 correct, every picture through the frame program,
+    the inter-layer reference built on the card (no reference from the
+    host), MC launched at least once per access unit (every EL picture
+    is a P picture)."""
+    from hevc_tpu_torch import pipeline as PP
+    from torch_streams import SHVC, shvc_stream
+    PP.host_refs["count"] = 0
+    n = _decode_on_card(card, shvc_stream(name), name)
+    assert PP.host_refs["count"] == 0, name
+    assert n["mc"] >= SHVC[name]()[1], n
+
+
 # ---------------------------------------------------------------------------
 # the CABAC kernel (csrc/cabac.cu) and the probe kernels (csrc/probes.cu)
 # ---------------------------------------------------------------------------
@@ -541,6 +563,17 @@ def test_one_tma_box_at_an_unaligned_offset_faults_on_card(card, k):
     from hevc_tpu_torch import probes
     assert probes.WINDOW_CASES[k].origin[1] % 4
     assert probes.one_box_outcome(k).startswith("fault, CUDA error 715")
+
+
+@pytest.mark.cuda
+def test_copy_rates_on_card(card):
+    """A graph of device copies is exact and gives a rate for every buffer;
+    the copies that stay in L2 are faster than the one that does not."""
+    from hevc_tpu_torch import probes
+    rates = probes.copy_rates(card)
+    assert set(rates) == set(probes.L2_BUFFERS) | {probes.HBM_BUFFER}
+    assert all(r > 0 for r in rates.values())
+    assert max(rates[n] for n in probes.L2_BUFFERS) > rates[probes.HBM_BUFFER]
 
 
 @pytest.mark.cuda

@@ -5,7 +5,7 @@ syntax, NumPy oracles, native stage A, containers, encoder) and imports
 nothing of it.  Here: no module of hevc_tpu_torch and no line of
 chip_smoke.py imports ``jax`` or ``hevc_tpu``; the port's encoder writes
 the bytes the JAX package's encoder writes; the port's decoder rejects a
-backend it does not have and keeps the seams that raise.
+backend it does not have.
 """
 import ast
 import os
@@ -84,11 +84,6 @@ def test_decoder_refuses_an_unknown_backend():
     dec = TorchDecoder(device="cpu")
     assert isinstance(dec, Decoder) and dec.recon_backend == "torch"
     assert dec.device.type == "cpu"
-
-
-def test_torch_backend_refuses_shvc_enhancement_layers():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TorchDecoder(device="cpu")._start_el_picture(None, None, None)
 
 
 def test_torch_backend_refuses_pictures_without_native_records(monkeypatch):

@@ -177,6 +177,106 @@ for _k, _kw in REXT.items():
         6))
 
 
+# ---------------------------------------------------------------------------
+# SHVC two-layer streams: the configurations of tests/test_shvc.py and
+# tests/test_cgs.py, made by the port's ShvcEncoder
+# ---------------------------------------------------------------------------
+
+# tests/test_cgs.py DELTAS1: gain and DC changes per octant half
+CGS_DELTAS = {
+    (0, 0, 0, 0): (-3, 0, 1),
+    (0, 0, 0, 3): (2, -1, 0),
+    (0, 1, 0, 1): (4, 2, -2),
+    (1, 0, 1, 2): (-2, 3, 1),
+    (1, 1, 1, 3): (1, 1, 1),
+}
+
+
+def shvc_configs(bl_wh, el_wh, qp=30, **el_kw):
+    """tests/test_shvc.py ``cfg_pair``."""
+    bl = EncoderConfig(width=bl_wh[0], height=bl_wh[1], qp=qp,
+                       log2_ctb_size=5, log2_cu_size=5, gop="ipp",
+                       search_range=2, seed=3)
+    el = EncoderConfig(width=el_wh[0], height=el_wh[1], qp=qp,
+                       log2_ctb_size=5, log2_cu_size=5, gop="ipp",
+                       search_range=2, seed=4, **el_kw)
+    return bl, el
+
+
+def cgs_lut():
+    """tests/test_cgs.py ``lut_depth1``."""
+    from hevc_tpu_torch.ops.cgs import CgsLut
+    return CgsLut(octant_depth=1, y_part_num_log2=1, res_quant_bit=1,
+                  flc_bits=2, adapt_threshold_u_delta=5,
+                  adapt_threshold_v_delta=-3)
+
+
+def encode_shvc(encoder_cls, bl, el, n, sources=("gradient", "zoneplate"),
+                synth=synth_frame, cgs=None):
+    """tests/test_shvc.py ``encode_shvc`` (an EL deeper than 8 bits gets
+    its source shifted up, as test_shvc_bit_depth_8_to_10 does), with
+    ``encoder_cls`` the port's or the JAX package's ShvcEncoder and
+    ``synth`` its ``synth_frame``.  ``cgs``: a CgsLut for tests/test_cgs.py
+    ``encode_cgs`` (with CGS_DELTAS)."""
+    kw = {} if cgs is None else dict(cgs=cgs, cgs_deltas=CGS_DELTAS)
+    enc = encoder_cls(bl, el, **kw)
+    bl_base = synth(sources[0], bl.width, bl.height, 0)
+    el_base = synth(sources[1], el.width, el.height, 0)
+    if el.bit_depth > 8:
+        el_base = [p.astype(np.int32) << (el.bit_depth - 8) for p in el_base]
+    out = bytearray()
+    for t in range(n):
+        out += enc.encode_frame(
+            [np.roll(p, (t * 2, t * 3), (0, 1)) for p in bl_base],
+            [np.roll(p, (t * 4, t * 6), (0, 1)) for p in el_base])
+    return bytes(out)
+
+
+def _tmvp(col_idx, bl_tmvp):
+    bl, el = shvc_configs((64, 64), (128, 128))
+    bl.tmvp, el.tmvp, el.tmvp_col_ref_idx = bl_tmvp, True, col_idx
+    return (bl, el), 4, {}
+
+
+def _filters():
+    bl, el = shvc_configs((64, 64), (128, 128))
+    for c in (bl, el):
+        c.deblocking = c.sao = True
+    return (bl, el), 3, dict(sources=("noise", "zoneplate"))
+
+
+def _snr():
+    bl, el = shvc_configs((64, 64), (64, 64), qp=34)
+    el.qp = 26  # SNR scalability: same size, finer quantization
+    return (bl, el), 3, {}
+
+
+# name -> a zero-argument function giving ((bl config, el config), access
+# units, encode_shvc's keywords); fresh configs on every call
+SHVC = {
+    "x2": lambda: (shvc_configs((64, 64), (128, 128)), 3, {}),
+    "x1_5": lambda: (shvc_configs((64, 64), (96, 96)), 2, {}),
+    "arbitrary": lambda: (shvc_configs((48, 32), (112, 80)), 2, {}),
+    "snr": _snr,
+    "filters": _filters,
+    "tmvp_col0": lambda: _tmvp(0, False),
+    "tmvp_col1": lambda: _tmvp(1, True),
+    "bd8_10": lambda: (shvc_configs((64, 64), (128, 128), bit_depth=10),
+                       3, {}),
+    "cgs": lambda: (shvc_configs((64, 64), (128, 128)), 3,
+                    dict(cgs=cgs_lut())),
+    "cgs_snr": lambda: (shvc_configs((64, 64), (64, 64)), 3,
+                        dict(cgs=cgs_lut())),
+}
+
+
+def shvc_stream(name):
+    """The SHVC stream ``name`` made by the port's encoder."""
+    from hevc_tpu_torch.encoder.shvc import ShvcEncoder
+    (bl, el), n, kw = SHVC[name]()
+    return encode_shvc(ShvcEncoder, bl, el, n, **kw)
+
+
 def planes_of(frames):
     """[(planes as NumPy, md5_ok, poc)] of decoded frames."""
     return [([np.asarray(p) for p in f.planes], f.md5_ok, f.poc)
