@@ -61,7 +61,34 @@
    bound with its terms (``cabac.rows.chain_bound``, from the two
    latencies ``chain_latency_kernel`` measures and the card's highest SM
    clock);
-8. the probe path: with the launch counts at 0, runs
+8. the banded phase: ``BANDED_STREAM`` (``.bench/smoke_1920x1080_qp30_
+   ctb64_tiles3x1_3f.265``: the headline settings without WPP, in three
+   column tiles with loop filtering across them, I P P) in three column
+   bands of 640 through ``hevc_tpu_torch.sharded`` (on this card, or
+   spread over the cards there are): stage A and the band packs on the
+   host (``band.prepare_gop_banded``, every MD5 of its NumPy decode
+   correct), a captured ``decode_gop_banded`` run (every band's kernel
+   inputs; stage B and each halo exchange timed with the cards
+   synchronised), a counted run (launch counts and host references from 0
+   just before, read just after; each picture's stage B by CUDA events):
+   every plane equal to the sequential decode, 0 references from the
+   host, ``mc`` once per band of each P picture (6); both inter kernels
+   against their plain versions on a P picture's bands 0 and 1 (tolerance
+   0); ``decode_stream_banded`` over ``iter_gop_banded`` with the halo
+   forced to widen mid-GOP; ``TorchDecoder`` on the same stream for
+   comparison; with three cards or more ``python -m
+   hevc_tpu_torch.dist_worker --stream BANDED_STREAM`` over NCCL, one
+   process and one band a card, each rank's band equal to the same
+   columns of the sequential decode (with fewer it prints that the path
+   was not run);
+9. the frame-axis phase: ``PGOP_STREAM`` (``.bench/smoke_1920x1080_qp30_
+   ctb64_pgop4b.265``: ``ParallelBGopEncoder(n_b=4)`` at the headline
+   settings, I0, P5, then B1-B4 reading only the anchors) decoded by
+   ``TorchDecoder`` (every MD5), then counted through
+   ``pgop_frame.decode_frame_parallel`` over the cards: B1-B4 one batch,
+   every picture's MD5 correct and every plane equal to the sequential
+   decode, 0 references from the host, ``mc`` once per inter picture;
+10. the probe path: with the launch counts at 0, runs
    ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the roll of
    an 8K plane, the five TMA window cases of ``tools/probe_dma.py``, the
    2,880-block TMA pipeline and the pipeline over two 8192 x 8192
@@ -75,15 +102,15 @@
    ``torch.profiler`` at the end), each wrapper's host cost a call, and
    the rate device copies reach in L2 (``probes.copy_rates``), over which
    the TMA ring's bytes on the probe's planes give its bound there;
-9. prints the kernel table as JSON: per kernel its launches on the
-   counted run, its error against the plain version, the kernel's, the
-   plain version's and (where one PyTorch call computes the same
-   function) that call's ms, and the bound: the largest of the bytes the
-   function must move over 3.35 TB/s, its operations over the card's
-   peak rate for their type and, where the work is one dependent chain a
-   row, that chain's latency; then the card, and last
-   ``{"ok": true, "device": {...}}``, after checking that neither
-   ``jax`` nor ``hevc_tpu`` was imported.
+11. prints the kernel table as JSON: per kernel its launches on the
+    counted run (the inter kernels': the main stream's), its error against
+    the plain version, the kernel's, the plain version's and (where one
+    PyTorch call computes the same function) that call's ms, and the
+    bound: the largest of the bytes the function must move over 3.35 TB/s,
+    its operations over the card's peak rate for their type and, where the
+    work is one dependent chain a row, that chain's latency; then the
+    card, and last ``{"ok": true, "device": {...}}``, after checking that
+    neither ``jax`` nor ``hevc_tpu`` was imported.
 
 Any failure raises, so the script exits nonzero before the last line.  It
 also exits nonzero at once without a visible CUDA device.
@@ -226,6 +253,42 @@ def synth_shvc(path, aus=SHVC_AUS):
     return path
 
 
+# the banded phase's stream: the headline settings without WPP, in three
+# column tiles (30 CTB columns: three tile-aligned bands of 640 columns, one
+# of them interior), loop filtering across the tiles; I P P.  Broadcast
+# encoders send UHD/HD streams with column tiles for such parallel decode.
+BANDS, BANDED_FRAMES = 3, 3
+BANDED = dict(wpp=False, tiles=(BANDS, 1), lf_across_tiles=True)
+BANDED_STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_tiles"
+                             f"{BANDS}x1_{BANDED_FRAMES}f.265")
+# the frame-axis phase's stream: ParallelBGopEncoder's GOP at the headline
+# settings (RA, no WPP): I0, P5, then B1-B4, which read only the anchors
+PGOP_B = 4
+PGOP_STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_pgop"
+                           f"{PGOP_B}b.265")
+
+
+def synth_pgop(path, n_b=PGOP_B):
+    """PGOP_STREAM: the rolled gradient of ``synth_stream``, n_b + 2
+    pictures in display order, through ``ParallelBGopEncoder``."""
+    from hevc_tpu_torch.encoder.core import EncoderConfig
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    from hevc_tpu_torch.encoder.pgop import ParallelBGopEncoder
+    cfg = EncoderConfig(width=W, height=H, qp=QP, log2_ctb_size=6,
+                        log2_cu_size=6, deblocking=True, sao=True, seed=1,
+                        gop="ra", search_range=3)
+    base = synth_frame("gradient", W, H, 0, seed=9)
+    frames = [[np.roll(base[0], (t * 4, t * 7), (0, 1))]
+              + [np.roll(c, (t * 2, t * 3), (0, 1)) for c in base[1:]]
+              for t in range(n_b + 2)]
+    data = ParallelBGopEncoder(cfg, n_b).encode(frames)
+    tmp = path + f".{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+    return path
+
+
 def stream_jobs():
     """{path: (function, arguments, keywords)} of every stream the smoke
     decodes at 1080p."""
@@ -234,6 +297,9 @@ def stream_jobs():
         path = format_path(name)
         jobs[path] = (synth_stream, (path, W, H, QP, frames), extra)
     jobs[SHVC_STREAM] = (synth_shvc, (SHVC_STREAM,), {})
+    jobs[BANDED_STREAM] = (synth_stream, (BANDED_STREAM, W, H, QP,
+                                          BANDED_FRAMES), BANDED)
+    jobs[PGOP_STREAM] = (synth_pgop, (PGOP_STREAM,), {})
     return jobs
 
 
@@ -616,31 +682,38 @@ def phase_real_kernels(cap, dev):
                           bound_ms(ra_b, ra_ops))}
 
 
-def captured_kernel_errors(cap, dev, layer=None):
+def captured_kernel_errors(cap, layer=None):
     """(mc_err, resid_add_err, (layer, POC)): each kernel against its plain
     version on the captured inputs of the P picture (of ``layer``, if
     given) with the most MC rows."""
+    k = max((i for i, at in enumerate(cap.mc_at)
+             if layer is None or at[0] == layer),
+            key=lambda i: sum(g[6].shape[0] for g in cap.mc[i][3]))
+    # the same picture's residual inputs
+    at = cap.mc_at[k]
+    return kernel_errors(cap.mc[k], cap.resid[cap.resid_at.index(at)]) \
+        + (at,)
+
+
+def kernel_errors(mc_args, resid_args):
+    """(mc_err, resid_add_err): each inter kernel against its plain version
+    on one picture's (or band's) captured wrapper inputs, on their card."""
     import torch
     from hevc_tpu_torch import mc_cuda
     from hevc_tpu_torch.mc import mc_plain, resid_add_plain
     from hevc_tpu_torch.tables import tables_from_reference
-    k = max((i for i, at in enumerate(cap.mc_at)
-             if layer is None or at[0] == layer),
-            key=lambda i: sum(g[6].shape[0] for g in cap.mc[i][3]))
-    canvas, refs_l, refs_c, groups, bd = cap.mc[k]
+    canvas, refs_l, refs_c, groups, bd = mc_args
     table = mc_cuda.mc_table(groups, canvas.shape)
-    rows = torch.from_numpy(table.rows).to(dev).int()
+    rows = torch.from_numpy(table.rows).to(canvas.device).int()
     got = mc_cuda.mc(canvas.clone(), refs_l, refs_c, groups, bd)
     want = mc_plain(canvas.clone(), refs_l, refs_c,
                     mc_cuda.table_groups(table, rows), bd,
-                    tables_from_reference(dev))
+                    tables_from_reference(canvas.device))
     mc_err = int((got - want).abs().max())
-    # the same picture's residual inputs
-    at = cap.mc_at[k]
-    canvas, fields, pools, bd = cap.resid[cap.resid_at.index(at)]
+    canvas, fields, pools, bd = resid_args
     got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
     want = resid_add_plain(canvas.clone(), fields, pools, bd)
-    return mc_err, int((got - want).abs().max()), at
+    return mc_err, int((got - want).abs().max())
 
 
 def counted_decode(decode, dev, pipeline, trace, build):
@@ -728,7 +801,7 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
         assert all(s["from_plan"] for s in seen), "B: native records?"
     if fmt == "C":
         assert all(s["planes"] == 1 for s in seen)
-    mc_err, ra_err, _at = captured_kernel_errors(cap, dev)
+    mc_err, ra_err, _at = captured_kernel_errors(cap)
     assert mc_err == 0 and ra_err == 0, \
         f"{name}: kernels != plain ({mc_err}, {ra_err})"
     torch.cuda.synchronize()
@@ -799,7 +872,7 @@ def phase_shvc(dev, smi, cli, decoder, pipeline, trace, build):
     assert counts["mc"] == n_inter and 0 < counts["resid_add"] <= n_inter, \
         f"SHVC: launches {counts} for {n_inter} P pictures"
 
-    mc_err, ra_err, at = captured_kernel_errors(cap, dev, layer=1)
+    mc_err, ra_err, at = captured_kernel_errors(cap, layer=1)
     assert mc_err == 0 and ra_err == 0, \
         f"SHVC: kernels != plain on EL picture {at} ({mc_err}, {ra_err})"
     up_err = 0
@@ -866,6 +939,326 @@ def phase_shvc(dev, smi, cli, decoder, pipeline, trace, build):
             split.items())))
     log(f"SHVC captured run, stages synchronised, ms per call: "
         f"{cap.report()} ({smi})")
+
+
+def cards():
+    import torch
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def sync_cards():
+    import torch
+    for d in cards():
+        torch.cuda.synchronize(d)
+
+
+def synced(fn, out):
+    """fn timed with every card synchronised before and after: ms appended
+    to ``out``."""
+    def run(*a, **k):
+        sync_cards()
+        t0 = time.perf_counter()
+        res = fn(*a, **k)
+        sync_cards()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+    return run
+
+
+class BandCapture:
+    """On an uncounted banded decode: the inputs each band's recon hands the
+    two inter kernel wrappers, keyed (POC, band), and each picture's stage
+    B and each halo exchange in it timed with the cards synchronised."""
+
+    def __init__(self):
+        self.mc, self.resid = {}, {}
+        self.at = None
+        self.step_ms, self.exchange_ms, self.exchanges = [], [], []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from hevc_tpu_torch import mc_cuda, sharded
+        orig = (mc_cuda.mc, mc_cuda.resid_add, sharded.band_recon,
+                sharded.band_step, sharded._exchange)
+
+        def mc(canvas, refs_l, refs_c, groups, bd):
+            self.mc[self.at] = (canvas.clone(), refs_l.clone(),
+                                refs_c.clone(),
+                                [g[:6] + (np.array(g[6]),) for g in groups],
+                                bd)
+            return orig[0](canvas, refs_l, refs_c, groups, bd)
+
+        def resid_add(canvas, fields, pools, bd):
+            self.resid[self.at] = (canvas.clone(),
+                                   [f.clone() for f in fields],
+                                   [q.clone() for q in pools], bd)
+            return orig[1](canvas, fields, pools, bd)
+
+        def band_recon(*a):
+            self.at = (self.at[0], self.at[1] + 1)
+            return orig[2](*a)
+
+        timed_step = synced(orig[3], self.step_ms)
+
+        def band_step(layout, fb, *a):
+            self.at = (fb["poc"], layout.first - 1)
+            n = len(self.exchange_ms)
+            out = timed_step(layout, fb, *a)
+            self.exchanges.append(sum(self.exchange_ms[n:]))
+            return out
+
+        mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
+        sharded.band_recon, sharded.band_step = band_recon, band_step
+        sharded._exchange = synced(orig[4], self.exchange_ms)
+        try:
+            yield self
+        finally:
+            (mc_cuda.mc, mc_cuda.resid_add, sharded.band_recon,
+             sharded.band_step, sharded._exchange) = orig
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def first_diff(got, want):
+    """'' when the planes are equal, else where they first differ."""
+    for p, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape:
+            return f"plane {p}: shape {g.shape} != {w.shape}"
+        bad = np.argwhere(g != w)
+        if bad.size:
+            yx = tuple(int(v) for v in bad[0])
+            return (f"plane {p}: {len(bad)} samples differ, first (y, x) "
+                    f"{yx}: {g[yx]} != {w[yx]}")
+    return ""
+
+
+def displayed(planes, shapes):
+    """Coded-size planes cut to the output pictures' shapes (the smoke's
+    encoder pads only at the right and the bottom)."""
+    return [np.asarray(p)[:h, :w] for p, (h, w) in zip(planes, shapes)]
+
+
+def phase_banded(dev, smi, decoder, pipeline, build):
+    """BANDED_STREAM in BANDS column bands through ``sharded`` (on one card,
+    or spread over the cards there are): the host's stage A and band packs
+    (``band.prepare_gop_banded``, every MD5 of its decode correct), a
+    captured ``decode_gop_banded`` run (kernel inputs of every band; stage B
+    and each halo exchange timed with the cards synchronised), a counted
+    run (launch counts and host references from 0 just before, read just
+    after; each picture's stage B by CUDA events), both inter kernels
+    against their plain versions on a P picture's bands 0 and 1, the
+    streaming decode with the halo widened mid-GOP, ``TorchDecoder`` on the
+    same stream for comparison, and with BANDS cards or more
+    ``dist_worker`` on the same stream over NCCL, one process and one band
+    a card."""
+    import torch
+    from hevc_tpu_torch import band, sharded
+    data = open(BANDED_STREAM, "rb").read()
+    t0 = time.perf_counter()
+    frames, ref, halo = band.prepare_gop_banded(data, BANDS)
+    stage_a = time.perf_counter() - t0
+    md5 = [f["md5_ok"] for f in frames]
+    assert md5 == [True] * BANDED_FRAMES, f"banded: host decode MD5 {md5}"
+    n_inter = sum(bool(f["ref_pocs_l0"] or f["ref_pocs_l1"]) for f in frames)
+    assert n_inter == BANDED_FRAMES - 1
+    devs = cards()
+    layout = sharded.BandLayout.over(BANDS, devs)
+
+    def check(outs, what):
+        assert len(outs) == BANDED_FRAMES, what
+        for i, (out, want) in enumerate(zip(outs, ref)):
+            bad = first_diff(sharded.stitch(out), want)
+            assert not bad, f"banded ({what}): picture {i} {bad}"
+
+    cap = BandCapture()
+    with cap.installed():
+        check(sharded.decode_gop_banded(layout, frames, *halo), "captured")
+
+    dpb, outs, ev_ms = {}, [], []
+    build.reset_launches()
+    pipeline.host_refs["count"] = 0
+    for fb in frames:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs += sharded.decode_gop_banded(layout, [fb], *halo, dpb=dpb)
+        sync_cards()
+        e1.record()
+        e1.synchronize()
+        ev_ms.append(e0.elapsed_time(e1))
+    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
+    host = pipeline.host_refs["count"]
+    check(outs, "counted")
+    assert host == 0, f"banded: {host} references from the host"
+    assert counts["mc"] == BANDS * n_inter and counts["resid_add"] > 0, \
+        f"banded: launches {counts} for {n_inter} P pictures x {BANDS} bands"
+
+    poc = frames[-1]["poc"]
+    errs = {k: kernel_errors(cap.mc[(poc, k)], cap.resid[(poc, k)])
+            for k in (0, 1)}
+    assert all(e == (0, 0) for e in errs.values()), \
+        f"banded: kernels != plain on POC {poc}'s bands: {errs}"
+
+    orig = band.required_halo_frame
+    calls, halos = [], []
+
+    def bumped(plan, sps, nb):
+        """From the third picture on, a bound wider than the halo so far."""
+        hl, hc = orig(plan, sps, nb)
+        calls.append(1)
+        if len(calls) < 3:
+            return hl, hc
+        return max(hl, halos[-1][0]) + 8, max(hc, halos[-1][1]) + 4
+
+    def tap(it):
+        for fb, h in it:
+            halos.append(h)
+            yield fb, h
+
+    band.required_halo_frame = bumped
+    t0 = time.perf_counter()
+    try:
+        souts = list(sharded.decode_stream_banded(layout, tap(
+            band.iter_gop_banded(data, BANDS, margin_l=0, margin_c=0))))
+    finally:
+        band.required_halo_frame = orig
+    stream_s = time.perf_counter() - t0
+    check(souts, "streamed, halo widened")
+    assert halos[2][0] > halos[1][0] and halos[2][1] > halos[1][1], \
+        f"banded: the halo did not widen at the third picture {halos}"
+
+    t0 = time.perf_counter()
+    tframes = decoder.TorchDecoder(check_md5=True,
+                                   device=dev).decode_bytes(data)
+    tmd5 = [f.md5_ok for f in tframes]
+    torch_s = time.perf_counter() - t0
+    assert tmd5 == [True] * BANDED_FRAMES, f"banded: TorchDecoder MD5 {tmd5}"
+    for i, f in enumerate(tframes):
+        shapes = [p.shape for p in f.planes]
+        bad = first_diff(displayed(sharded.stitch(outs[i]), shapes),
+                         f.planes)
+        assert not bad, f"banded != TorchDecoder, picture {i}: {bad}"
+    t0 = time.perf_counter()
+    for f in decoder.TorchDecoder(check_md5=False,
+                                  device=dev).decode_bytes(data):
+        f.planes.device_ready()
+    torch_ready_s = time.perf_counter() - t0
+
+    log(f"banded {W}x{H}, {BANDS} tile-aligned bands of {W // BANDS} "
+        f"columns on {[str(d) for d in layout.devices]}, halo {halo}, "
+        f"{BANDED_FRAMES} pictures (I P P): every plane == the sequential "
+        f"host decode (every MD5 correct) on the captured, counted and "
+        f"streamed runs, and == TorchDecoder; 0 references from the host; "
+        f"launches {counts} ({n_inter} P pictures x {BANDS} bands); "
+        f"mc_kernel and resid_add_kernel == plain on POC {poc}'s bands 0 "
+        f"and 1 (errors {errs}); streamed halos {halos}")
+    log(f"banded stage A on the host (Decoder(recon_backend='plan'), its "
+        f"NumPy stage B and filters, then the band packs): {stage_a:.3f} s "
+        f"for {BANDED_FRAMES} pictures; the streamed run with its own stage "
+        f"A on a worker thread {stream_s:.3f} s ({smi})")
+    share = [x / t for x, t in zip(cap.exchanges, cap.step_ms)]
+    log(f"banded stage B, ms per picture: {ev_ms} (CUDA events, counted "
+        f"run); captured run with the cards synchronised {cap.step_ms}, of "
+        f"which halo exchanges {cap.exchanges} (share {share}) ({smi})")
+    log(f"TorchDecoder on the banded stream: {torch_s:.3f} s with the MD5 "
+        f"fetch, {torch_ready_s:.3f} s to the last picture on the card "
+        f"without it, {BANDED_FRAMES} pictures ({smi})")
+    banded_over_nccl(len(devs), smi)
+
+
+def banded_over_nccl(n_cards, smi):
+    """BANDED_STREAM through ``python -m hevc_tpu_torch.dist_worker`` over
+    NCCL, one process and one band a card, each rank's band checked against
+    the same columns of the sequential decode; with fewer than BANDS cards
+    a line says that it did not run."""
+    if n_cards < BANDS:
+        log(f"banded across processes (dist_worker over NCCL): {n_cards} "
+            f"card(s) visible, the {BANDS}-band stream needs {BANDS}, one "
+            f"rank a band; not run")
+        return
+    port, world = free_port(), BANDS
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hevc_tpu_torch.dist_worker", str(port),
+         str(r), str(world), "1", "--stream", BANDED_STREAM,
+         "--backend", "nccl"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"worker {r} OK" in out, \
+            f"dist_worker rank {r} over NCCL:\n{out[-3000:]}"
+    log(f"banded across processes: dist_worker over NCCL on the {W}x{H} "
+        f"banded stream, {world} ranks x 1 band, each rank's band == the "
+        f"sequential decode: " + "; ".join(
+            o.strip().splitlines()[-1] for o in outs)
+        + f" ({time.perf_counter() - t0:.1f} s with start-up) ({smi})")
+
+
+def phase_frame_axis(dev, smi, decoder, pipeline, build):
+    """PGOP_STREAM through ``pgop_frame.decode_frame_parallel`` over the
+    cards there are: the sequential ``TorchDecoder`` decode first (every
+    MD5), then the frame axis counted (launch counts and host references
+    from 0 just before, read just after; each picture's stage B timed with
+    the cards synchronised): the 4 B pictures in one batch, every plane's
+    MD5 == its SEI MD5 and == the sequential decode, 0 references from the
+    host, ``mc`` once per inter picture."""
+    from hevc_tpu_torch import pgop_frame
+    from hevc_tpu_torch.bitstream.sei import picture_md5
+    data = open(PGOP_STREAM, "rb").read()
+    n = PGOP_B + 2
+    t0 = time.perf_counter()
+    seq = decoder.TorchDecoder(check_md5=True, device=dev).decode_bytes(data)
+    seq_s = time.perf_counter() - t0
+    md5 = {f.poc: f.md5_ok for f in seq}
+    assert md5 == {p: True for p in range(n)}, f"frame axis: MD5 {md5}"
+    step_ms = []
+    orig = pgop_frame.band_step
+    pgop_frame.band_step = synced(orig, step_ms)
+    build.reset_launches()
+    pipeline.host_refs["count"] = 0
+    t0 = time.perf_counter()
+    try:
+        out, batches = pgop_frame.decode_frame_parallel(data, cards())
+        sync_cards()
+    finally:
+        pgop_frame.band_step = orig
+    wall = time.perf_counter() - t0
+    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
+    host = pipeline.host_refs["count"]
+    assert batches == [[0], [PGOP_B + 1], list(range(1, PGOP_B + 1))], \
+        f"frame axis: batches {batches}"
+    assert host == 0, f"frame axis: {host} references from the host"
+    assert counts["mc"] == n - 1 and counts["resid_add"] > 0, \
+        f"frame axis: launches {counts} for {n - 1} inter pictures"
+    for f in seq:
+        got = [p.cpu().numpy() for p in out[f.poc]]
+        assert picture_md5(got, 8) == f.sei_hash.md5, \
+            f"frame axis: POC {f.poc}'s MD5"
+        bad = first_diff(displayed(got, [p.shape for p in f.planes]),
+                         f.planes)
+        assert not bad, f"frame axis != TorchDecoder, POC {f.poc}: {bad}"
+    log(f"frame axis {W}x{H}, ParallelBGopEncoder(n_b={PGOP_B}): batches "
+        f"{batches} over {[str(d) for d in cards()]}; every picture's MD5 "
+        f"correct and every plane == the sequential TorchDecoder decode; 0 "
+        f"references from the host; launches {counts} for {n - 1} inter "
+        f"pictures")
+    log(f"frame axis: {wall:.3f} s with its host stage A (Decoder("
+        f"recon_backend='plan')) and packs; stage B ms per picture, decode "
+        f"order, cards synchronised: {step_ms}; the sequential TorchDecoder "
+        f"{seq_s:.3f} s with the MD5 fetch ({smi})")
 
 
 def phase_small_reference(dev):
@@ -1247,6 +1640,8 @@ def run(smi, dev):
         "cabac_kernel", "hevc_tpu_torch/csrc/cabac.cu",
         "hevc_tpu/tpu/cabac_pallas.py:49", n, err, ms, plain_ms, None,
         bound))
+    phase_banded(dev, smi, decoder, pipeline, build)
+    phase_frame_axis(dev, smi, decoder, pipeline, build)
     for name, row in phase_probes(dev, smi).items():
         kernels.append(kernel_row(
             f"{name}_kernel", "hevc_tpu_torch/csrc/probes.cu",

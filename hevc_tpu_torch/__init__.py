@@ -12,7 +12,11 @@ the inter residual add) are written by hand in CUDA C++ for Hopper
 (``csrc/``).  ``hevc_tpu`` stays the bit-exact reference.
 
 Entry points: ``TorchDecoder`` (``Decoder(recon_backend="torch")``) and
-``python -m hevc_tpu_torch.cli``.  Beside the decoder, ``cabac/rows.py``
+``python -m hevc_tpu_torch.cli``.  Several devices: ``band.py`` and
+``sharded.py`` decode a tile-coded stream in column bands with halo
+exchange (``python -m hevc_tpu_torch.dist_worker`` across processes),
+``pgop_frame.py`` the pictures of a dependency batch side by side.
+Beside the decoder, ``cabac/rows.py``
 ports the on-device CABAC engine (``hevc_tpu/tpu/cabac_pallas.py``;
 ``python -m hevc_tpu_torch.cabac.rows``) and ``probes.py`` the Mosaic
 probes of ``tools/``, each with its Hopper kernel in ``csrc/``.

@@ -1350,7 +1350,7 @@ class Decoder:
 
     def __init__(self, check_md5: bool = True, recon_backend: str = "inline",
                  target_layer: int = 63, temporal_layer: int = 7,
-                 device=None):
+                 device=None, plan_hook=None):
         """recon_backend: 'inline' reconstructs during parse (NumPy oracle);
         'plan' records stage-A symbol plans and replays them (NumPy);
         'torch' records native stage-A chunks and runs stage B, the
@@ -1363,7 +1363,11 @@ class Decoder:
         (``pipeline.inter_layer_ref``).
         target_layer/temporal_layer: decode-up-to selectors (the
         quality_layer_id / temporal-layer-id AVOptions of the
-        reference, hevcdec.c:4642-4668)."""
+        reference, hevcdec.c:4642-4668).
+        plan_hook: with 'plan', called as ``plan_hook(pic, plan, dpb_pocs)``
+        once a picture's plan has been replayed (before its loop filters);
+        dpb_pocs are the POCs its layer's DPB keeps as references while the
+        picture decodes (its RPS, 8.3.2)."""
         if recon_backend not in ("inline", "plan", "torch"):
             raise ValueError(f"recon_backend {recon_backend!r}: expected "
                              "'inline', 'plan' or 'torch'")
@@ -1375,6 +1379,7 @@ class Decoder:
             from ..device import resolve_device
             self.device = resolve_device(device)
         self.check_md5 = check_md5
+        self.plan_hook = plan_hook
         self.target_layer = target_layer
         self.temporal_layer = temporal_layer
         self.layers: Dict[int, _LayerCtx] = {}
@@ -2010,6 +2015,8 @@ class Decoder:
                                             lay.cur_poc, self.device)
             else:
                 execute_plan_numpy(pic, plan)
+                if self.plan_hook is not None:
+                    self.plan_hook(pic, plan, tuple(lay.dpb))
         # multi-slice / restricted-tile-boundary filter semantics need
         # the per-CTB parameter path (reference: s->deblock[ctb] +
         # filter_slice_edges, hevc_filter.c:264/:525/:989)

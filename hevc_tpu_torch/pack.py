@@ -12,7 +12,9 @@ row counts: the card needs no static shapes.
 The canvas layout (``region_offsets``, the ``PAD``/``TAIL`` margins, the
 ``DUMP`` sentinel, ``PAD_REF``) and ``PackedFrame``, the per-frame pack of
 ``native.pack_frame_native``, are those of ``hevc_tpu/tpu/pack.py`` at
-e99b487.
+e99b487; ``pack_frame_plan`` (a picture's Python records to a
+``PackedFrame``, what the banded and frame-axis decodes pack) is that
+module's ``pack_frame`` at 7a00da0.
 """
 from __future__ import annotations
 
@@ -81,6 +83,226 @@ def _pow2_at_least(x):
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
+
+
+def _schedule_levels(pic, plan):
+    """Wavefront scheduling of a picture's BlockRecords (a copy of
+    ``hevc_tpu/tpu/pack.py:_schedule_levels`` at 7a00da0): MC records have
+    no canvas dependencies, inter residual adds depend only on the MC
+    writes below them, and an intra record's level is 1 + the highest
+    level of the blocks its L-shaped reference band reads.  Returns
+    (mc_records, resid_records, chunks), chunks[level] = intra records."""
+    sps = pic.sps
+    shapes = {0: (sps.height, sps.width)}
+    shapes[1] = shapes[2] = (sps.height // sps.sub_h, sps.width // sps.sub_w)
+    lvl_map = {p: np.full(shapes[p], -1, np.int32) for p in range(3)}
+    chunks = []
+    mc_records = []
+    resid_records = []
+    for r in plan:
+        m = lvl_map[r.plane]
+        if r.kind in ("mc", "pcm"):
+            # PCM samples pre-fill the canvas: readable from level 0 like
+            # MC output
+            m[r.y:r.y + r.h, r.x:r.x + r.size] = \
+                np.maximum(m[r.y:r.y + r.h, r.x:r.x + r.size], 0)
+            if r.kind == "mc":
+                mc_records.append(r)
+            continue
+        if r.kind == "resid":
+            m[r.y:r.y + r.size, r.x:r.x + r.size] = \
+                np.maximum(m[r.y:r.y + r.size, r.x:r.x + r.size], 0)
+            resid_records.append(r)
+            continue
+        h, w = m.shape
+        n2 = 2 * r.size
+        x0 = max(0, r.x - 1)
+        y0 = max(0, r.y - 1)
+        col = m[y0:min(h, r.y + n2), x0:r.x] if r.x > 0 else None
+        row = m[y0:r.y, x0:min(w, r.x + n2)] if r.y > 0 else None
+        lvl = 0
+        if col is not None and col.size:
+            lvl = max(lvl, int(col.max()) + 1)
+        if row is not None and row.size:
+            lvl = max(lvl, int(row.max()) + 1)
+        m[r.y:r.y + r.size, r.x:r.x + r.size] = lvl
+        while len(chunks) <= lvl:
+            chunks.append([])
+        chunks[lvl].append(r)
+    return mc_records, resid_records, chunks
+
+
+def pack_frame_plan(pic, plan) -> PackedFrame:
+    """A picture's Python BlockRecords -> ``PackedFrame`` (a copy of
+    ``hevc_tpu/tpu/pack.py:pack_frame`` at 7a00da0).
+
+    Not ``pack_frame``, the native pipeline pack of this module: this one
+    takes the record list of ``Decoder(recon_backend="plan")`` and any
+    object with the ``PictureState`` queries it uses, which is how the
+    banded decode packs one column band (``band._BandPic``).  Unlike the
+    JAX pack it packs no reference planes (``refs_l``/``refs_c`` stay
+    None: the banded and frame-axis decodes read their references from the
+    device), and a class's batch width per wavefront chunk is its largest
+    count, not the next power of two.  MC rows keep the JAX field layout
+    ((is_chroma, bi, w, h, wp, fields)); ``band.mc_rows`` converts them for
+    ``mc_cuda.mc``.  A reference window outside the PAD_REF-padded frame
+    vertically, or left of it, raises ValueError."""
+    from .ops import reference as R
+    from .ops.mc import chroma_mv_parts
+    sps = pic.sps
+    bd = sps.bit_depth_luma
+    reg, ch, cw = region_offsets(sps)
+    canvas = np.zeros((ch, cw), np.int32)
+    classes = {4: 0, 8: 1, 16: 2, 32: 3}
+    chroma444 = sps.chroma_format_idc == 3
+
+    mc_records, resid_records, chunks = _schedule_levels(pic, plan)
+
+    # residual pools (slot 0 = zeros, prepended on the device); rmeta row:
+    # (qp, dst, ts, raw, mtx+1, rot, rdpcm, ccp_alpha, ccp_slot)
+    lv = [[] for _ in range(4)]
+    rmeta = [[] for _ in range(4)]
+    slots = {}
+    for r in plan:
+        if r.kind == "pcm":
+            oy, ox, _, _ = reg[r.plane]
+            canvas[oy + r.y:oy + r.y + r.h,
+                   ox + r.x:ox + r.x + r.size] = r.levels
+            continue
+        if r.levels is None and not getattr(r, "ccp", 0):
+            continue
+        c = classes[r.size]
+        if r.levels is None:  # CCP-only chroma TU: own zero-level slot
+            lv[c].append(np.zeros((r.size, r.size), np.int32))
+        else:
+            lv[c].append(np.asarray(r.levels, np.int32))
+        rmeta[c].append((r.qp, int(r.dst), int(r.ts), int(r.tqb),
+                         r.mtx + 1, int(getattr(r, "rot", False)),
+                         int(getattr(r, "rdpcm", 0)),
+                         int(getattr(r, "ccp", 0)), 0))
+        slots[id(r)] = len(lv[c])
+    for r in plan:  # CCP luma slots (same size class in 4:4:4)
+        if getattr(r, "ccp", 0) and r.kind != "pcm":
+            c = classes[r.size]
+            row = list(rmeta[c][slots[id(r)] - 1])
+            row[8] = slots[id(r.ccp_ref)]
+            rmeta[c][slots[id(r)] - 1] = tuple(row)
+
+    rec_meta = {}  # id(rec) -> (class, scal fields, avail bits)
+    for chk in chunks:
+        for r in chk:
+            n = r.size
+            sx = sps.sub_w if r.plane else 1
+            sy = sps.sub_h if r.plane else 1
+            oy, ox, rh, rw = reg[r.plane]
+            xl, yl = r.x * sx, r.y * sy
+            bits = np.zeros(128, bool)
+            for i in range(2 * n):
+                if r.y + i < rh:
+                    bits[i] = pic.available(xl, yl, xl - sx, (r.y + i) * sy)
+                if r.x + i < rw:
+                    bits[64 + i] = pic.available(xl, yl, (r.x + i) * sx,
+                                                 yl - sy)
+            ac = pic.available(xl, yl, xl - sx, yl - sy)
+            filt = (not sps.intra_smoothing_disabled
+                    and R._filter_flag(r.mode, n, r.plane, chroma444, False))
+            strong = bool(sps.strong_intra_smoothing) and n == 32 and filt
+            rec_meta[id(r)] = (classes[n], (
+                oy + r.y, ox + r.x, r.mode, slots.get(id(r), 0), int(filt),
+                int(strong), int(r.plane == 0 and n < 32), int(ac)), bits)
+
+    # ---- MC + inter-residual phase groups -------------------------------
+    refs0 = getattr(pic, "ref_list_l0", []) or []
+    refs1 = getattr(pic, "ref_list_l1", []) or []
+    nrefs = len(refs0) + len(refs1)
+    r0 = len(refs0)
+    hs, vs = sps.sub_w - 1, sps.sub_h - 1
+
+    def _mc_entry(r, mv, ridx, lx):
+        """(sel, by, bx, fx, fy) for one prediction of a record."""
+        if r.plane:
+            ox, fx = chroma_mv_parts(mv[0], hs)
+            oy, fy = chroma_mv_parts(mv[1], vs)
+            bx = PAD_REF + r.x + ox - 1
+            by = PAD_REF + r.y + oy - 1
+            sel = (r.plane - 1) * nrefs + ridx + (r0 if lx else 0)
+            hp = sps.height // sps.sub_h + 2 * PAD_REF
+            ext = 3
+        else:
+            fx, fy = mv[0] & 3, mv[1] & 3
+            bx = PAD_REF + r.x + (mv[0] >> 2) - 3
+            by = PAD_REF + r.y + (mv[1] >> 2) - 3
+            sel = ridx + (r0 if lx else 0)
+            hp = sps.height + 2 * PAD_REF
+            ext = 7
+        if bx < 0 or by < 0 or by + r.h + ext > hp:
+            raise ValueError("MV exceeds PAD_REF")
+        return (sel, by, bx, fx, fy)
+
+    mc_grp = {}
+    for r in mc_records:
+        oy, ox, _, _ = reg[r.plane]
+        if r.bi:
+            row = (_mc_entry(r, r.mv, r.ref_idx, 0)
+                   + _mc_entry(r, r.mv1, r.ref_idx1, 1)
+                   + (oy + r.y, ox + r.x))
+        else:
+            row = _mc_entry(r, r.mv, r.ref_idx, r.lx) + (oy + r.y, ox + r.x)
+        if r.wp is not None:
+            row = row + tuple(r.wp)
+        key = (r.plane > 0, bool(r.bi), r.size, r.h, r.wp is not None)
+        mc_grp.setdefault(key, []).append(row)
+    mc_groups = tuple(
+        k + (np.asarray(v, np.int32),) for k, v in sorted(mc_grp.items()))
+    resid_grp = [[] for _ in range(4)]
+    for r in resid_records:
+        oy, ox, _, _ = reg[r.plane]
+        resid_grp[classes[r.size]].append((oy + r.y, ox + r.x, slots[id(r)]))
+    resid_groups = tuple(
+        np.asarray(g, np.int32) if g else np.zeros((0, 3), np.int32)
+        for g in resid_grp)
+
+    n_chunks = _round_up(max(1, len(chunks)), 16)
+    counts = [max((sum(1 for r in chk if classes[r.size] == c)
+                   for chk in chunks), default=0) for c in range(4)]
+    scal, avail = [], []
+    for c in range(4):
+        a = np.zeros((n_chunks, counts[c], 8), np.int32)
+        a[:, :, 0] = DUMP
+        a[:, :, 1] = DUMP
+        a[:, :, 2] = 1
+        scal.append(a)
+        avail.append(np.zeros((n_chunks, counts[c], 128), bool))
+    for k, chk in enumerate(chunks):
+        fill = [0, 0, 0, 0]
+        for r in chk:
+            c, fields, bits = rec_meta[id(r)]
+            scal[c][k, fill[c]] = fields
+            avail[c][k, fill[c]] = bits
+            fill[c] += 1
+
+    levels, rmetas = [], []
+    for c, s in enumerate((4, 8, 16, 32)):
+        nlv = _round_up(max(1, len(lv[c]) + 1), 16)
+        padl = nlv - len(lv[c])
+        levels.append(np.stack(lv[c] + [np.zeros((s, s), np.int32)] * padl))
+        rmetas.append(np.asarray(rmeta[c] + [(0,) * 9] * padl, np.int32))
+
+    # scaling-list matrix banks: slot 0 = flat 16, 1..6 = matrix ids
+    scaling = getattr(pic, "scaling", None)
+    bank = []
+    for c in range(4):
+        b = np.full((7, 4 << c, 4 << c), 16, np.int32)
+        if scaling is not None:
+            for mid in range(6):
+                b[mid + 1] = scaling.factor(c + 2, mid)[0]
+        bank.append(b)
+
+    return PackedFrame(canvas=canvas, scal=tuple(scal), avail=tuple(avail),
+                       levels=tuple(levels), rmeta=tuple(rmetas),
+                       n_chunks=n_chunks, region=reg, bit_depth=bd,
+                       mc_groups=mc_groups, resid_groups=resid_groups,
+                       scale_bank=tuple(bank))
 
 
 def _window_ok(mr, sps):

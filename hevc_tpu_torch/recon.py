@@ -1,6 +1,8 @@
-"""Per-class residual pools (port of ``hevc_tpu/tpu/recon.py:_residuals``)."""
+"""Per-class residual pools (port of ``hevc_tpu/tpu/recon.py:_residuals``)
+and the per-CTB SAO maps of a picture (``pack_sao_params``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .transforms import residual_batch
@@ -48,3 +50,29 @@ def residuals(levels, rmeta, bit_depth, scale_bank, tables):
             r = torch.where(alpha != 0, _wrap16(r + add), r)
         out.append(torch.cat([zero, r]))
     return tuple(out)
+
+
+def pack_sao_params(pic):
+    """Per-CTB SAO parameter maps of a picture, 3 planes each: (type,
+    band_pos, offs4, eo_class), int32 [3, cty, ctx] (offs4 [3, cty, ctx,
+    4]: the 4 signed offsets of the band (k = 0..3) or edge (categories
+    1..4)).  A copy of ``hevc_tpu/tpu/recon.py:pack_sao_params`` at
+    7a00da0, which lives in a module that imports JAX."""
+    if getattr(pic, "sao_arrays", None) is not None:
+        return pic.sao_arrays  # native stage A fills these directly
+    sps = pic.sps
+    cty, ctx = sps.ctb_h, sps.ctb_w
+    sao_map = getattr(pic, "sao_map", None) or {}
+    t = np.zeros((3, cty, ctx), np.int32)
+    pos = np.zeros((3, cty, ctx), np.int32)
+    offs = np.zeros((3, cty, ctx, 4), np.int32)
+    ec = np.zeros((3, cty, ctx), np.int32)
+    for (xc, yc), prm in sao_map.items():
+        for p in range(3):
+            ti = prm.type_idx[p]
+            t[p, yc, xc] = ti
+            if ti:
+                offs[p, yc, xc] = prm.offsets[p]
+                pos[p, yc, xc] = prm.band_position[p]
+                ec[p, yc, xc] = prm.eo_class[p]
+    return t, pos, offs, ec

@@ -1,7 +1,9 @@
 """The CUDA kernels (hevc_tpu_torch/csrc/*.cu) against their plain PyTorch
 versions on the card, bit for bit, on the parametrisation of
 tests/test_mc_pallas.py plus padding rows, and one launch each for a
-picture's mixed MC groups and all four residual classes.  Needs a card
+picture's mixed MC groups and all four residual classes; whole streams,
+SHVC, the CABAC and probe kernels; the banded decode, the frame axis and
+the banded decode across processes over NCCL on every card.  Needs a card
 (marker `cuda`); skips without one.  This file imports only the port (no
 JAX, no hevc_tpu), so it runs on a machine that has only torch:
 python -m pytest tests/test_torch_cuda.py
@@ -585,3 +587,124 @@ def test_tma_pipe_kernel_matches_plain_on_card(card):
     got = probes.tma_pipe(x, org)
     torch.cuda.synchronize()
     assert torch.equal(got, probes.pipe_plain(x, org))
+
+
+# ---------------------------------------------------------------------------
+# several devices: the banded decode (sharded.py), the frame axis
+# (pgop_frame.py) and the banded decode across processes over NCCL
+# ---------------------------------------------------------------------------
+
+def _tile_stream(w, h, n_bands, n_frames, kind, qp, **extra):
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=w, height=h, qp=qp, gop="ipp", deblocking=True, sao=True,
+        search_range=3, log2_ctb_size=6, log2_cu_size=6, seed=2,
+        tiles=(n_bands, 1), **extra))
+    return b"".join(enc.encode_frame(synth_frame(kind, w, h, t, seed=4))
+                    for t in range(n_frames))
+
+
+def _banded_on_cards(data, n_bands):
+    """The stream in n_bands bands spread over every card: equal to the
+    sequential host decode (every MD5 correct), no reference from the
+    host, MC launched once per band of every P picture.  Returns the
+    launch counts."""
+    from hevc_tpu_torch import band, pipeline, sharded
+    frames, ref, halo = band.prepare_gop_banded(data, n_bands)
+    assert all(f["md5_ok"] for f in frames)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    layout = sharded.BandLayout.over(n_bands, cards)
+    pipeline.host_refs["count"] = 0
+    before = dict(build.launches)
+    outs = sharded.decode_gop_banded(layout, frames, *halo)
+    n = {k: build.launches[k] - before[k] for k in ("mc", "resid_add")}
+    assert pipeline.host_refs["count"] == 0
+    for i, (out, want) in enumerate(zip(outs, ref)):
+        for p, (g, w) in enumerate(zip(sharded.stitch(out), want)):
+            bad = np.argwhere(g != w)
+            assert not bad.size, (i, p, tuple(bad[0]))
+    n_inter = sum(bool(f["ref_pocs_l0"]) for f in frames)
+    assert n["mc"] == n_bands * n_inter and n["resid_add"] > 0, n
+    return n
+
+
+@pytest.mark.cuda
+def test_banded_1080p_three_bands_on_card(card):
+    """The smoke's banded stream: 1920x1080, three column tiles of 640, I P
+    P, loop filtering across the tiles."""
+    _banded_on_cards(_tile_stream(1920, 1080, 3, 3, "gradient", 30,
+                                  lf_across_tiles=True), 3)
+
+
+@pytest.mark.cuda
+def test_banded_2048x1088_eight_bands_on_card(card):
+    """tests/test_band_pipeline.py's 1080p-class case: 2048x1088 in eight
+    bands of 256 columns, QP 34."""
+    _banded_on_cards(_tile_stream(2048, 1088, 8, 3, "gradient", 34), 8)
+
+
+@pytest.mark.cuda
+def test_frame_axis_on_card(card):
+    """A parallel-B GOP (I0, P5, B1-B4) at 416x240 over every card: the
+    four B pictures in one batch, each picture's MD5 correct, no reference
+    from the host."""
+    from hevc_tpu_torch import pipeline
+    from hevc_tpu_torch.bitstream.sei import picture_md5
+    from hevc_tpu_torch.decoder import Decoder
+    from hevc_tpu_torch.pgop_frame import decode_bframes_frame_axis
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    pipeline.host_refs["count"] = 0
+    stream, got, batches = decode_bframes_frame_axis(cards, n_b=4,
+                                                     width=416, height=240)
+    assert pipeline.host_refs["count"] == 0
+    assert batches == [[0], [5], [1, 2, 3, 4]]
+    want = {f.poc: f for f in Decoder(recon_backend="inline")
+            .decode_bytes(stream)}
+    for poc, planes in got.items():
+        host = [p.cpu().numpy() for p in planes]
+        assert picture_md5(host, 8) == want[poc].sei_hash.md5, poc
+        # the output pictures are cropped at the right and the bottom
+        assert all(np.array_equal(a[:b.shape[0], :b.shape[1]], b)
+                   for a, b in zip(host, map(np.asarray,
+                                             want[poc].planes))), poc
+
+
+@pytest.mark.cuda
+def test_dist_worker_over_nccl_on_card(card, tmp_path):
+    """python -m hevc_tpu_torch.dist_worker, one process and one band a card
+    over NCCL, on a 1920x1080 stream with 64x64 CTBs in as many column
+    tiles as ranks (three with three cards or more, else two): the ranks
+    exchange 1088-row halos."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    world = min(torch.cuda.device_count(), 3)
+    if world < 2:
+        pytest.skip("the banded decode across processes needs two cards or "
+                    "more")
+    path = tmp_path / "tiles.265"
+    path.write_bytes(_tile_stream(1920, 1080, world, 3, "gradient", 30,
+                                  lf_across_tiles=True))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hevc_tpu_torch.dist_worker", str(port),
+         str(r), str(world), "1", "--stream", str(path), "--backend",
+         "nccl"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"worker {r} OK" in out, out[-3000:]
+        print(f"{world} ranks over NCCL, 1920x1080: "
+              f"{out.strip().splitlines()[-1]}")

@@ -4,8 +4,8 @@ The port carries copies of the JAX package's host code (bitstream, CABAC,
 syntax, NumPy oracles, native stage A, containers, encoder) and imports
 nothing of it.  Here: no module of hevc_tpu_torch and no line of
 chip_smoke.py imports ``jax`` or ``hevc_tpu``; the port's encoder writes
-the bytes the JAX package's encoder writes; the port's decoder rejects a
-backend it does not have.
+the bytes the JAX package's encoder writes (its parallel-B GOP encoder
+too); the port's decoder rejects a backend it does not have.
 """
 import ast
 import os
@@ -17,9 +17,11 @@ from hevc_tpu.encoder.core import EncoderConfig as JaxConfig
 from hevc_tpu.encoder.core import IntraEncoder as JaxIntra
 from hevc_tpu.encoder.core import RaEncoder as JaxRa
 from hevc_tpu.encoder.generate import synth_frame as jax_synth
+from hevc_tpu.encoder.pgop import ParallelBGopEncoder as JaxPgop
 from hevc_tpu_torch.decoder import Decoder, TorchDecoder
 from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder, RaEncoder
 from hevc_tpu_torch.encoder.generate import synth_frame
+from hevc_tpu_torch.encoder.pgop import ParallelBGopEncoder
 from test_torch_pipeline import CONFIGS, INLINE_ONLY
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +78,20 @@ def test_port_encoder_is_byte_identical(name):
     got = _encode(EncoderConfig, IntraEncoder, RaEncoder, synth_frame, kw, n)
     want = _encode(JaxConfig, JaxIntra, JaxRa, jax_synth, kw, n)
     assert len(got) > 100 and got == want
+
+
+@pytest.mark.parametrize("n_b", [2, 4])
+def test_port_parallel_b_encoder_is_byte_identical(n_b):
+    kw = dict(width=96, height=64, qp=30, log2_ctb_size=5, log2_cu_size=5,
+              gop="ra", deblocking=True, sao=True, seed=2, search_range=2)
+    got_enc = ParallelBGopEncoder(EncoderConfig(**kw), n_b)
+    want_enc = JaxPgop(JaxConfig(**kw), n_b)
+    got = got_enc.encode([synth_frame("noise", 96, 64, t, seed=4)
+                          for t in range(n_b + 2)])
+    want = want_enc.encode([jax_synth("noise", 96, 64, t, seed=4)
+                            for t in range(n_b + 2)])
+    assert len(got) > 100 and got == want
+    assert [p for p, _ in got_enc.recons] == [p for p, _ in want_enc.recons]
 
 
 def test_decoder_refuses_an_unknown_backend():
