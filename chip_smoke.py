@@ -88,7 +88,14 @@
    ``pgop_frame.decode_frame_parallel`` over the cards: B1-B4 one batch,
    every picture's MD5 correct and every plane equal to the sequential
    decode, 0 references from the host, ``mc`` once per inter picture;
-10. the probe path: with the launch counts at 0, runs
+10. the bench phase (right after step 4): the main stream through
+   ``python -m hevc_tpu_torch.bench``'s stage-B functions (``bench.bench_stages``): its
+   last P picture's frame program replayed 16 times (each replay equal to
+   the decode, replays a second), each stage alone on that picture's
+   inputs by CUDA events beside its bound (``bounds.stage_b_work``), and,
+   at the end, the replays' device-busy time and idle share from a
+   ``torch.profiler`` trace;
+11. the probe path: with the launch counts at 0, runs
    ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the roll of
    an 8K plane, the five TMA window cases of ``tools/probe_dma.py``, the
    2,880-block TMA pipeline and the pipeline over two 8192 x 8192
@@ -102,7 +109,7 @@
    ``torch.profiler`` at the end), each wrapper's host cost a call, and
    the rate device copies reach in L2 (``probes.copy_rates``), over which
    the TMA ring's bytes on the probe's planes give its bound there;
-11. prints the kernel table as JSON: per kernel its launches on the
+12. prints the kernel table as JSON: per kernel its launches on the
     counted run (the inter kernels': the main stream's), its error against
     the plain version, the kernel's, the plain version's and (where one
     PyTorch call computes the same function) that call's ms, and the
@@ -129,6 +136,8 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
+from hevc_tpu_torch.bounds import HBM_BYTES_S, bound_ms, mc_work, resid_work
+from hevc_tpu_torch.capture import Capture, kernel_errors
 from hevc_tpu_torch.device import cuda_ms, profiler_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -139,14 +148,12 @@ PROFILE = []
 # (kernel name, the one PyTorch call for the same function): traced there
 # too, every kernel and copy of the call summed
 PROFILE_LIBRARY = []
+# (bench.Replay, replays) of phase_bench: their device-busy time is traced
+# there too
+PROFILE_REPLAYS = []
 CACHE = os.path.join(ROOT, ".bench")
 W, H, QP, FRAMES = 1920, 1080, 30, 4
 STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_{FRAMES}f.265")
-# the bound's rates (NVIDIA H100 SXM data sheet): device memory, and int32
-# operations outside the tensor cores — an SM has 64 int32 lanes against
-# 128 fp32 ones, so half the 67 TFLOP/s of fp32, a multiply-add counting 2
-HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 33.5e12
 
 
 def log(*a):
@@ -461,162 +468,6 @@ def phase_random_kernels(dev):
         "at 8 and 10 bit, bit-exact")
 
 
-class Capture:
-    """On an uncounted decode: records the inputs the frame program
-    hands each kernel wrapper (and the picture, (layer, POC), each came
-    from) and the SHVC upsampler's inputs and outputs, and times each stage
-    of the frame program and of the inter-layer build with the device
-    synchronised before and after (ms per call)."""
-
-    STAGES = ("frame_program", "residuals", "reconstruct_wavefront",
-              "deblock", "deblock_luma", "sao_plane")
-    # the inter-layer reference's steps: (module, function, stage name)
-    IL = (("upsample", "color_map_frame", "il_color_map"),
-          ("upsample", "upsample_frame", "il_upsample"),
-          ("pipeline", "pad_dev_refs", "il_pad"))
-
-    def __init__(self):
-        self.mc, self.resid, self.mc_at, self.resid_at = [], [], [], []
-        self.upsample = []
-        self.at = None
-        self.ms = {k: [] for k in self.STAGES + ("mc", "resid_add")
-                   + tuple(k for _m, _f, k in self.IL)}
-
-    @contextlib.contextmanager
-    def installed(self):
-        import torch
-        from hevc_tpu_torch import mc_cuda, pipeline, upsample
-        mods = {"pipeline": pipeline, "upsample": upsample}
-        orig = {k: getattr(pipeline, k) for k in self.STAGES}
-        orig_il = {k: getattr(mods[m], f) for m, f, k in self.IL}
-        orig_mc, orig_ra = mc_cuda.mc, mc_cuda.resid_add
-        orig_finish = pipeline.finish_frame
-
-        def timed(fn, name):
-            def run(*a, **k):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-                self.ms[name].append((time.perf_counter() - t0) * 1e3)
-                return out
-            return run
-
-        mc_t, ra_t = timed(orig_mc, "mc"), timed(orig_ra, "resid_add")
-
-        def mc(canvas, refs_l, refs_c, groups, bd):
-            self.mc.append((canvas.clone(), refs_l.clone(), refs_c.clone(),
-                            [g[:6] + (np.array(g[6]),) for g in groups], bd))
-            self.mc_at.append(self.at)
-            return mc_t(canvas, refs_l, refs_c, groups, bd)
-
-        def resid_add(canvas, fields, pools, bd):
-            self.resid.append((canvas.clone(), [f.clone() for f in fields],
-                               [p.clone() for p in pools], bd))
-            self.resid_at.append(self.at)
-            return ra_t(canvas, fields, pools, bd)
-
-        def finish(pic, lay, poc, device):
-            self.at = (lay.layer_id, poc)
-            return orig_finish(pic, lay, poc, device)
-
-        up_t = timed(orig_il["il_upsample"], "il_upsample")
-
-        def upsample_frame(planes, *a, **k):
-            out = up_t(planes, *a, **k)
-            self.upsample.append(([p.clone() for p in planes], a, k,
-                                  [p.clone() for p in out]))
-            return out
-
-        mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
-        pipeline.finish_frame = finish
-        for k, fn in orig.items():
-            setattr(pipeline, k, timed(fn, k))
-        for m, f, k in self.IL:
-            setattr(mods[m], f, upsample_frame if k == "il_upsample"
-                    else timed(orig_il[k], k))
-        try:
-            yield self
-        finally:
-            mc_cuda.mc, mc_cuda.resid_add = orig_mc, orig_ra
-            pipeline.finish_frame = orig_finish
-            for k, fn in orig.items():
-                setattr(pipeline, k, fn)
-            for m, f, k in self.IL:
-                setattr(mods[m], f, orig_il[k])
-
-    def report(self):
-        return "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v)
-                         for k, v in self.ms.items() if v)
-
-
-def bound_ms(n_bytes, n_ops, chain_ms=0.0):
-    """(ms, "bytes", "operations" or "chain"): the least time of the card
-    for the bytes at HBM_BYTES_S, the int32 operations at INT32_OPS_S and,
-    for a kernel that is one dependent chain per unit of parallel work,
-    that chain (``cabac.rows.chain_bound``)."""
-    terms = {"bytes": n_bytes / HBM_BYTES_S * 1e3,
-             "operations": n_ops / INT32_OPS_S * 1e3, "chain": chain_ms}
-    by = max(terms, key=terms.get)
-    return terms[by], by
-
-
-def mc_work(refs_l, refs_c, table):
-    """(bytes, int32 operations) the picture's MC needs: every reference
-    pixel some prediction reads, once (a full-pel axis reads no filter
-    margin), the int16 row table, and each predicted pixel written once; the
-    separable filter's multiply-adds (2 operations each, none on a
-    full-pel axis) and about 4 operations a pixel to round, weight and
-    clip."""
-    import torch
-    dev = refs_l.device
-    seen = {False: torch.zeros(refs_l.shape, dtype=torch.bool, device=dev),
-            True: torch.zeros(refs_c.shape, dtype=torch.bool, device=dev)}
-    ops, px = 0, 0
-    for is_ch, bi, _wp, w, h, start, n in table.groups:
-        nt = 4 if is_ch else 8
-        refs = refs_c if is_ch else refs_l
-        nr, hp, wp = refs.shape
-        rows = torch.from_numpy(table.rows[start:start + n]).to(dev).long()
-        px += n * w * h
-        for o in ((0, 5) if bi else (0,)):
-            sel = rows[:, o].clamp(0, nr - 1)
-            by = rows[:, o + 1].clamp(0, hp - (h + nt - 1))
-            bx = rows[:, o + 2].clamp(0, wp - (w + nt - 1))
-            fx, fy = rows[:, o + 3] != 0, rows[:, o + 4] != 0
-            c = nt // 2 - 1          # the unit tap's column
-            ys = torch.arange(h + nt - 1, device=dev)
-            xs = torch.arange(w + nt - 1, device=dev)
-            need_y = fy[:, None] | ((ys >= c) & (ys < c + h))[None]
-            need_x = fx[:, None] | ((xs >= c) & (xs < c + w))[None]
-            mask = need_y[:, :, None] & need_x[:, None, :]
-            yy = (by[:, None, None] + ys[None, :, None]).expand_as(mask)
-            xx = (bx[:, None, None] + xs[None, None, :]).expand_as(mask)
-            ss = sel[:, None, None].expand_as(mask)
-            seen[bool(is_ch)][ss[mask], yy[mask], xx[mask]] = True
-            nfx, nfy = int(fx.sum()), int(fy.sum())
-            ops += 2 * nt * w * (nfx * (h + nt - 1) + nfy * h)
-        ops += 4 * n * w * h
-    n_bytes = 4 * (int(seen[False].sum()) + int(seen[True].sum()) + px) \
-        + table.rows.nbytes
-    return n_bytes, ops
-
-
-def resid_work(fields, pools):
-    """(bytes, int32 operations) of the residual add: each TU's canvas
-    tile read and written, each residual block it uses read once, the row
-    tables; an add and a clip (3 operations) a pixel."""
-    n_bytes, ops = 0, 0
-    for c, f in enumerate(fields):
-        s = 4 << c
-        n = int(f.shape[0])
-        slots = f[:, 2].clamp(0, pools[c].shape[0] - 1).unique().numel() \
-            if n else 0
-        n_bytes += 8 * n * s * s + 4 * slots * s * s + 12 * n
-        ops += 3 * n * s * s
-    return n_bytes, ops
-
-
 def phase_real_kernels(cap, dev):
     """Kernel vs plain on the largest captured 1080p row sets; times and
     bounds."""
@@ -682,6 +533,34 @@ def phase_real_kernels(cap, dev):
                           bound_ms(ra_b, ra_ops))}
 
 
+def phase_bench(dev, smi):
+    """The main stream through the stage-B functions of ``python -m
+    hevc_tpu_torch.bench`` (``bench.bench_stages``, no new encode): its last
+    P picture's frame program replayed 16 times, every replay equal to the
+    decode, then each stage alone on that picture's inputs (16 calls
+    between CUDA events) beside its bound, both inter kernels against their
+    plain versions.  The replays' device-busy time and idle share are
+    traced at the end (``PROFILE_REPLAYS``)."""
+    from hevc_tpu_torch import bench
+    tag = os.path.splitext(os.path.basename(STREAM))[0]
+    cfg = bench.Stages(bench.Stream(tag, W, H, QP, FRAMES, True), "smoke")
+    assert cfg.stream.path == STREAM, cfg.stream.path
+    rep, out = bench.bench_stages(cfg, dev)
+    assert out["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}, out
+    PROFILE_REPLAYS.append((rep, cfg.iters))
+    log(f"bench stage B, main stream's last P picture: {rep.count} replays "
+        f"of its frame program equal to the decode, "
+        f"{out['stageB_replay_fps_smoke']} replays a second (card "
+        f"synchronised); kernels == plain versions (error 0) ({smi})")
+    for k, us in out["kernel_us"].items():
+        log(f"bench stage {k}: {us} us by CUDA events, bound "
+            f"{out['kernel_bound_us'][k]} us ({out['kernel_bound_by'][k]}, "
+            f"{out['kernel_bytes'][k]} B), {out['kernel_gbps'][k]} GB/s "
+            f"({smi})")
+    log(f"bench elementwise roofline (p + 1 over the luma plane): "
+        f"{out['kernel_gbps']['roofline_elementwise']} GB/s ({smi})")
+
+
 def captured_kernel_errors(cap, layer=None):
     """(mc_err, resid_add_err, (layer, POC)): each kernel against its plain
     version on the captured inputs of the P picture (of ``layer``, if
@@ -693,27 +572,6 @@ def captured_kernel_errors(cap, layer=None):
     at = cap.mc_at[k]
     return kernel_errors(cap.mc[k], cap.resid[cap.resid_at.index(at)]) \
         + (at,)
-
-
-def kernel_errors(mc_args, resid_args):
-    """(mc_err, resid_add_err): each inter kernel against its plain version
-    on one picture's (or band's) captured wrapper inputs, on their card."""
-    import torch
-    from hevc_tpu_torch import mc_cuda
-    from hevc_tpu_torch.mc import mc_plain, resid_add_plain
-    from hevc_tpu_torch.tables import tables_from_reference
-    canvas, refs_l, refs_c, groups, bd = mc_args
-    table = mc_cuda.mc_table(groups, canvas.shape)
-    rows = torch.from_numpy(table.rows).to(canvas.device).int()
-    got = mc_cuda.mc(canvas.clone(), refs_l, refs_c, groups, bd)
-    want = mc_plain(canvas.clone(), refs_l, refs_c,
-                    mc_cuda.table_groups(table, rows), bd,
-                    tables_from_reference(canvas.device))
-    mc_err = int((got - want).abs().max())
-    canvas, fields, pools, bd = resid_args
-    got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
-    want = resid_add_plain(canvas.clone(), fields, pools, bd)
-    return mc_err, int((got - want).abs().max())
 
 
 def counted_decode(decode, dev, pipeline, trace, build):
@@ -1625,6 +1483,7 @@ def run(smi, dev):
     log(f"launch counts of the counted run: {counts}")
 
     real = phase_real_kernels(cap, dev)
+    phase_bench(dev, smi)
     for name in FORMATS:
         phase_format(name, dev, smi, decoder, pipeline, trace, build)
     phase_shvc(dev, smi, cli, decoder, pipeline, trace, build)
@@ -1656,6 +1515,11 @@ def run(smi, dev):
                for name, fn in PROFILE_LIBRARY}
     log(f"device ms of the probes' library calls (torch.profiler, every "
         f"kernel of the call): {library} ({smi})")
+    for rep, iters in PROFILE_REPLAYS:
+        busy, idle = rep.profiled(iters)
+        log(f"bench stage-B trace, {rep.name}: device-busy {busy} ms a replay"
+            f" ({1e3 / busy} device fps), idle share {idle} over {iters} "
+            f"replays (torch.profiler) ({smi})")
     blocked = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "hevc_tpu"))
     assert not blocked, f"the port imported {blocked}"

@@ -16,7 +16,9 @@ Entry points: ``TorchDecoder`` (``Decoder(recon_backend="torch")``) and
 ``sharded.py`` decode a tile-coded stream in column bands with halo
 exchange (``python -m hevc_tpu_torch.dist_worker`` across processes),
 ``pgop_frame.py`` the pictures of a dependency batch side by side.
-Beside the decoder, ``cabac/rows.py``
+``python -m hevc_tpu_torch.bench`` is the port's benchmark (the
+counterpart of ``bench.py``; ``bounds.py`` and ``capture.py`` hold its
+work counts and stage captures).  Beside the decoder, ``cabac/rows.py``
 ports the on-device CABAC engine (``hevc_tpu/tpu/cabac_pallas.py``;
 ``python -m hevc_tpu_torch.cabac.rows``) and ``probes.py`` the Mosaic
 probes of ``tools/``, each with its Hopper kernel in ``csrc/``.

@@ -156,6 +156,7 @@ class OHHandle:
             return []
         self._dec.flush()
         self._collect()
+        self._dec.close()
         out, self._out_fifo = self._out_fifo, []
         self._dec = None
         self._started = False

@@ -332,9 +332,10 @@ def iter_gop_banded(stream: bytes, n_bands, margin_l=16, margin_c=8,
         raise Stopped
 
     def produce():
+        dec = Decoder(recon_backend="plan",
+                      plan_hook=lambda *a: put(_capture_entry(*a)))
         try:
-            Decoder(recon_backend="plan", plan_hook=lambda *a: put(
-                _capture_entry(*a))).decode_bytes(stream)
+            dec.decode_bytes(stream)
             put(done)
         except Stopped:
             pass
@@ -343,6 +344,8 @@ def iter_gop_banded(stream: bytes, n_bands, margin_l=16, margin_c=8,
                 put(e)
             except Stopped:
                 pass
+        finally:
+            dec.close()
 
     t = threading.Thread(target=produce, daemon=True)
     t.start()

@@ -1,0 +1,171 @@
+"""The least time the card could take for a stage's work, and the work.
+
+A bound is the larger of two times: the bytes the function must move
+(each input read once, each output written once) over the card's memory
+rate, and its operations over the card's peak rate for their type.  The
+rates are NVIDIA's data sheet for the H100 SXM at its full 700 W.
+
+``mc_work`` / ``resid_work`` count the two inter kernels' work on one
+picture's inputs (what ``chip_smoke.py`` holds each kernel's time
+against); ``stage_b_work`` counts every stage of the frame program
+(``pipeline.frame_program``) from the inputs of one call, the inter terms
+through those two functions, so the kernels' bounds and the stage-B bytes
+are one count.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import mc_cuda
+from .pack import PAD_REF
+from .pipeline import host_views
+
+# device memory, and int32 operations outside the tensor cores: an SM has
+# 64 int32 lanes against 128 fp32 ones, so half the 67 TFLOP/s of fp32, a
+# multiply-add counting 2
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 33.5e12
+
+
+def bound_ms(n_bytes, n_ops, chain_ms=0.0):
+    """(ms, "bytes", "operations" or "chain"): the least time of the card
+    for the bytes at HBM_BYTES_S, the int32 operations at INT32_OPS_S and,
+    for a kernel that is one dependent chain per unit of parallel work,
+    that chain (``cabac.rows.chain_bound``)."""
+    terms = {"bytes": n_bytes / HBM_BYTES_S * 1e3,
+             "operations": n_ops / INT32_OPS_S * 1e3, "chain": chain_ms}
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def mc_work(refs_l, refs_c, table):
+    """(bytes, int32 operations) the picture's MC needs: every reference
+    pixel some prediction reads, once (a full-pel axis reads no filter
+    margin), the int16 row table, and each predicted pixel written once; the
+    separable filter's multiply-adds (2 operations each, none on a
+    full-pel axis) and about 4 operations a pixel to round, weight and
+    clip."""
+    dev = refs_l.device
+    seen = {False: torch.zeros(refs_l.shape, dtype=torch.bool, device=dev),
+            True: torch.zeros(refs_c.shape, dtype=torch.bool, device=dev)}
+    ops, px = 0, 0
+    for is_ch, bi, _wp, w, h, start, n in table.groups:
+        nt = 4 if is_ch else 8
+        refs = refs_c if is_ch else refs_l
+        nr, hp, wp = refs.shape
+        rows = torch.from_numpy(table.rows[start:start + n]).to(dev).long()
+        px += n * w * h
+        for o in ((0, 5) if bi else (0,)):
+            sel = rows[:, o].clamp(0, nr - 1)
+            by = rows[:, o + 1].clamp(0, hp - (h + nt - 1))
+            bx = rows[:, o + 2].clamp(0, wp - (w + nt - 1))
+            fx, fy = rows[:, o + 3] != 0, rows[:, o + 4] != 0
+            c = nt // 2 - 1          # the unit tap's column
+            ys = torch.arange(h + nt - 1, device=dev)
+            xs = torch.arange(w + nt - 1, device=dev)
+            need_y = fy[:, None] | ((ys >= c) & (ys < c + h))[None]
+            need_x = fx[:, None] | ((xs >= c) & (xs < c + w))[None]
+            mask = need_y[:, :, None] & need_x[:, None, :]
+            yy = (by[:, None, None] + ys[None, :, None]).expand_as(mask)
+            xx = (bx[:, None, None] + xs[None, None, :]).expand_as(mask)
+            ss = sel[:, None, None].expand_as(mask)
+            seen[bool(is_ch)][ss[mask], yy[mask], xx[mask]] = True
+            nfx, nfy = int(fx.sum()), int(fy.sum())
+            ops += 2 * nt * w * (nfx * (h + nt - 1) + nfy * h)
+        ops += 4 * n * w * h
+    n_bytes = 4 * (int(seen[False].sum()) + int(seen[True].sum()) + px) \
+        + table.rows.nbytes
+    return n_bytes, ops
+
+
+def resid_work(fields, pools):
+    """(bytes, int32 operations) of the residual add: each TU's canvas
+    tile read and written, each residual block it uses read once, the row
+    tables; an add and a clip (3 operations) a pixel.  Only the pools'
+    shapes are read."""
+    n_bytes, ops = 0, 0
+    for c, f in enumerate(fields):
+        s = 4 << c
+        n = int(f.shape[0])
+        slots = f[:, 2].clamp(0, pools[c].shape[0] - 1).unique().numel() \
+            if n else 0
+        n_bytes += 8 * n * s * s + 4 * slots * s * s + 12 * n
+        ops += 3 * n * s * s
+    return n_bytes, ops
+
+
+def stage_b_work(args):
+    """{stage: (bytes, int32 operations)} of one call of
+    ``pipeline.frame_program(*args)``: what each stage must move on the
+    card, each input read once and each output written once, int32 planes
+    and pools as the frame program keeps them; operations are counted for
+    the two inter kernels only (``mc_work``, ``resid_work``):
+
+    - ``upload``: the packed buffers and the MC row table, written once;
+    - ``residuals``: the int16 levels and their rows read, the int32
+      pools (a zero slot each) written;
+    - ``mc``, ``resid_add``: ``mc_work`` and ``resid_work``;
+    - ``intra``: per live intra record of n x n, its record and
+      availability row, its 4n + 1 neighbours and residual read and the
+      block written;
+    - ``deblock``: the planes read and written by each of the two passes,
+      and the QP and boundary-strength maps read;
+    - ``sao``: the planes read and written once, and the parameter maps
+      (``sao_luma`` the luma plane's share);
+    - ``output``: the planes read once, the fused output and the
+      PAD_REF-padded references of the device DPB written once."""
+    (meta, meta16, meta8, avail_u8, levels16, _bank, canvas0, refs_y,
+     refs_cb, refs_cr, spec, _device) = args
+    S = dict(spec)
+    scal, rmeta, fields, groups = host_views(np.asarray(meta, np.int32),
+                                             meta16, S)
+    canvas_shape = tuple(canvas0 if isinstance(canvas0, tuple)
+                         else np.shape(canvas0))
+    table = mc_cuda.mc_table(groups, canvas_shape)
+    work = {"upload": (int(np.asarray(meta).nbytes
+                           + np.asarray(meta8).nbytes
+                           + np.asarray(avail_u8).nbytes
+                           + np.asarray(levels16).nbytes
+                           + table.rows.nbytes), 0)}
+    sizes = [4 << c for c in range(4)]
+    pool_px = sum((S["nlv"][c] + 1) * s * s for c, s in enumerate(sizes))
+    work["residuals"] = (int(np.asarray(levels16).nbytes
+                             + sum(r.nbytes for r in rmeta) + 4 * pool_px),
+                         0)
+    if S["n_refs"]:
+        refs_l = torch.stack(list(refs_y))
+        refs_c = refs_l if S["mono"] else torch.stack(list(refs_cb)
+                                                      + list(refs_cr))
+        work["mc"] = mc_work(refs_l, refs_c, table)
+    else:
+        work["mc"] = (0, 0)
+    pools = [torch.empty((S["nlv"][c] + 1, s, s), dtype=torch.int32,
+                         device="meta") for c, s in enumerate(sizes)]
+    work["resid_add"] = resid_work([torch.from_numpy(f) for f in fields],
+                                   pools)
+    intra = 0
+    for c, s in enumerate(sizes):
+        live = int((scal[c][:, :, 0] >= 0).sum()) if scal[c].size else 0
+        intra += live * (8 * 4 + 128 + 4 * (4 * s + 1) + 2 * 4 * s * s)
+    work["intra"] = (intra, 0)
+    regions = S["regions"][:1] if S["mono"] else S["regions"]
+    frame32 = sum(4 * h * w for _oy, _ox, h, w in regions)
+    maps4 = S["h4"] * S["w4"]
+    sao_maps = 4 * 7 * S["ctb_h"] * S["ctb_w"]    # per plane
+    _oy, _ox, hl, wl = regions[0]
+    work["deblock"] = (4 * frame32 + 3 * maps4 if S["do_deblock"] else 0, 0)
+    work["sao"] = (2 * frame32 + len(regions) * sao_maps
+                   if S["do_sao"] else 0, 0)
+    work["sao_luma"] = (2 * 4 * hl * wl + sao_maps if S["do_sao"] else 0, 0)
+    out_b = 1 if S["bd"] <= 8 else 2
+    work["output"] = (frame32 + sum(
+        h * w * out_b + 4 * (h + 2 * PAD_REF) * (w + 2 * PAD_REF)
+        for _oy, _ox, h, w in regions), 0)
+    return work
+
+
+# the stages of ``stage_b_work`` that add up to a frame program's bytes
+# (``sao_luma`` is a share of ``sao``)
+STAGE_B_TERMS = ("upload", "residuals", "mc", "resid_add", "intra",
+                 "deblock", "sao", "output")

@@ -1,0 +1,174 @@
+"""Captures of what the frame program hands its stages, for the checks and
+timings of ``chip_smoke.py`` and ``python -m hevc_tpu_torch.bench``.
+
+``Capture`` records, over a whole decode, the inputs of the two inter
+kernel wrappers and the SHVC upsampler and times every stage with the card
+synchronised; ``StageInputs`` records the inputs of each stage of one
+``frame_program`` call, so that each stage can be timed alone;
+``kernel_errors`` holds both inter kernels against their plain versions
+on captured inputs.  ``pipeline.py`` imports the stage functions by name,
+so they are patched in its namespace.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+from . import mc_cuda, pipeline, upsample
+from .mc import mc_plain, resid_add_plain
+from .tables import tables_from_reference
+
+
+class Capture:
+    """On an uncounted decode: records the inputs the frame program
+    hands each kernel wrapper (and the picture, (layer, POC), each came
+    from) and the SHVC upsampler's inputs and outputs, and times each stage
+    of the frame program and of the inter-layer build with the device
+    synchronised before and after (ms per call)."""
+
+    STAGES = ("frame_program", "residuals", "reconstruct_wavefront",
+              "deblock", "deblock_luma", "sao_plane")
+    # the inter-layer reference's steps: (module, function, stage name)
+    IL = (("upsample", "color_map_frame", "il_color_map"),
+          ("upsample", "upsample_frame", "il_upsample"),
+          ("pipeline", "pad_dev_refs", "il_pad"))
+
+    def __init__(self):
+        self.mc, self.resid, self.mc_at, self.resid_at = [], [], [], []
+        self.upsample = []
+        self.at = None
+        self.ms = {k: [] for k in self.STAGES + ("mc", "resid_add")
+                   + tuple(k for _m, _f, k in self.IL)}
+
+    @contextlib.contextmanager
+    def installed(self):
+        mods = {"pipeline": pipeline, "upsample": upsample}
+        orig = {k: getattr(pipeline, k) for k in self.STAGES}
+        orig_il = {k: getattr(mods[m], f) for m, f, k in self.IL}
+        orig_mc, orig_ra = mc_cuda.mc, mc_cuda.resid_add
+        orig_finish = pipeline.finish_frame
+
+        def timed(fn, name):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.ms[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        mc_t, ra_t = timed(orig_mc, "mc"), timed(orig_ra, "resid_add")
+
+        def mc(canvas, refs_l, refs_c, groups, bd):
+            self.mc.append((canvas.clone(), refs_l.clone(), refs_c.clone(),
+                            [g[:6] + (np.array(g[6]),) for g in groups], bd))
+            self.mc_at.append(self.at)
+            return mc_t(canvas, refs_l, refs_c, groups, bd)
+
+        def resid_add(canvas, fields, pools, bd):
+            self.resid.append((canvas.clone(), [f.clone() for f in fields],
+                               [p.clone() for p in pools], bd))
+            self.resid_at.append(self.at)
+            return ra_t(canvas, fields, pools, bd)
+
+        def finish(pic, lay, poc, device):
+            self.at = (lay.layer_id, poc)
+            return orig_finish(pic, lay, poc, device)
+
+        up_t = timed(orig_il["il_upsample"], "il_upsample")
+
+        def upsample_frame(planes, *a, **k):
+            out = up_t(planes, *a, **k)
+            self.upsample.append(([p.clone() for p in planes], a, k,
+                                  [p.clone() for p in out]))
+            return out
+
+        mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
+        pipeline.finish_frame = finish
+        for k, fn in orig.items():
+            setattr(pipeline, k, timed(fn, k))
+        for m, f, k in self.IL:
+            setattr(mods[m], f, upsample_frame if k == "il_upsample"
+                    else timed(orig_il[k], k))
+        try:
+            yield self
+        finally:
+            mc_cuda.mc, mc_cuda.resid_add = orig_mc, orig_ra
+            pipeline.finish_frame = orig_finish
+            for k, fn in orig.items():
+                setattr(pipeline, k, fn)
+            for m, f, k in self.IL:
+                setattr(mods[m], f, orig_il[k])
+
+    def report(self):
+        return "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v)
+                         for k, v in self.ms.items() if v)
+
+
+def _clone(x):
+    """x with every tensor and NumPy array in it copied (lists and tuples
+    rebuilt): the stage inputs outlive the buffers the frame program
+    reuses or mutates."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+class StageInputs:
+    """During one ``frame_program`` call: the first call of each stage,
+    as {stage: (function, args, kwargs)} with the inputs copied before the
+    stage ran (MC and the residual add write their canvas in place).
+    ``sao_plane``'s first call is the luma plane's."""
+
+    # (module, function) of each stage, in the frame program's order
+    STAGES = ((pipeline, "residuals"), (mc_cuda, "mc"),
+              (mc_cuda, "resid_add"), (pipeline, "reconstruct_wavefront"),
+              (pipeline, "deblock"), (pipeline, "deblock_luma"),
+              (pipeline, "sao_plane"))
+
+    def __init__(self):
+        self.calls = {}
+
+    @contextlib.contextmanager
+    def installed(self):
+        orig = [(mod, name, getattr(mod, name)) for mod, name in self.STAGES]
+
+        def recorded(fn, name):
+            def run(*a, **k):
+                if name not in self.calls:
+                    self.calls[name] = (fn, _clone(a), _clone(k))
+                return fn(*a, **k)
+            return run
+
+        for mod, name, fn in orig:
+            setattr(mod, name, recorded(fn, name))
+        try:
+            yield self
+        finally:
+            for mod, name, fn in orig:
+                setattr(mod, name, fn)
+
+
+def kernel_errors(mc_args, resid_args):
+    """(mc_err, resid_add_err): each inter kernel against its plain version
+    on one picture's (or band's) captured wrapper inputs, on their card."""
+    canvas, refs_l, refs_c, groups, bd = mc_args
+    table = mc_cuda.mc_table(groups, canvas.shape)
+    rows = torch.from_numpy(table.rows).to(canvas.device).int()
+    got = mc_cuda.mc(canvas.clone(), refs_l, refs_c, groups, bd)
+    want = mc_plain(canvas.clone(), refs_l, refs_c,
+                    mc_cuda.table_groups(table, rows), bd,
+                    tables_from_reference(canvas.device))
+    mc_err = int((got - want).abs().max())
+    canvas, fields, pools, bd = resid_args
+    got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
+    want = resid_add_plain(canvas.clone(), fields, pools, bd)
+    return mc_err, int((got - want).abs().max())

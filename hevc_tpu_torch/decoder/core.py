@@ -1432,7 +1432,32 @@ class Decoder:
         self._pack_futs.append(fut)
         return fut
 
+    def close(self) -> None:
+        """Wait for the pack worker's jobs and the prefetches, then shut
+        both worker threads down.  Frames already handed out stay
+        resolvable (their pack jobs are done); a later job starts a new
+        worker."""
+        for name in ("_pack_pool", "_fetch_pool"):
+            pool = getattr(self, name, None)
+            if pool is not None:
+                setattr(self, name, None)
+                pool.shutdown(wait=True)
+
+    def __enter__(self) -> "Decoder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def decode_bytes(self, data: bytes) -> List[DecodedFrame]:
+        """Decode a whole Annex-B stream; the worker threads are shut down
+        when it returns or raises (``close``)."""
+        try:
+            return self._decode_bytes(data)
+        finally:
+            self.close()
+
+    def _decode_bytes(self, data: bytes) -> List[DecodedFrame]:
         import os as _os
         nals = list(nalmod.split_annexb(data))
         # slice-parallel stage A: groups of consecutive slice NALs
@@ -1696,7 +1721,7 @@ class Decoder:
                     self._drain_output(lay)
                 lay.cur_poc = 0
                 lay.dpb.clear()
-                if getattr(lay, "dpb_dev", None) is not None:
+                if self.recon_backend == "torch":
                     self._pack_submit(lay.dpb_dev.clear)
             else:
                 lay.cur_poc = poc
@@ -1714,7 +1739,7 @@ class Decoder:
                 for old in evict:
                     del lay.dpb[old]
                     lay.dpb_motion.pop(old, None)
-                if evict and getattr(lay, "dpb_dev", None) is not None:
+                if evict and self.recon_backend == "torch":
                     dd = lay.dpb_dev
                     self._pack_submit(
                         lambda dd=dd, ev=evict: [dd.pop(p, None)

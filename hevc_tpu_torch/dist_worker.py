@@ -1,20 +1,26 @@
 """One process of the banded decode across processes.
 
     python -m hevc_tpu_torch.dist_worker PORT RANK WORLD LOCAL_BANDS
-        [--stream FILE] [--backend gloo|nccl]
+        [--stream FILE] [--backend gloo|nccl] [--local-devices N]
+        [--reps R]
 
 Start it WORLD times, RANK 0 .. WORLD - 1, with one free TCP port on this
 host.  Each process joins a ``torch.distributed`` group
-(``tcp://localhost:PORT``; by default NCCL with card RANK when cards are
-visible, else gloo on the CPU), owns LOCAL_BANDS consecutive column bands
-of WORLD * LOCAL_BANDS, and runs ``sharded.decode_gop_banded`` over them,
-the halos to the neighbouring ranks through ``batch_isend_irecv``.  The
+(``tcp://localhost:PORT``; by default NCCL when cards are visible, else
+gloo on the CPU), owns LOCAL_BANDS consecutive column bands of WORLD *
+LOCAL_BANDS, and runs ``sharded.decode_gop_banded`` over them, the halos
+to the neighbouring ranks through ``batch_isend_irecv``.  Over NCCL rank
+RANK takes N consecutive cards (RANK * N .. RANK * N + N - 1; N = 1 by
+default) and spreads its bands over them in contiguous blocks; over gloo
+every band is on ``cpu``.  With R > 1 it decodes the GOP R times and
+reports the best time (the set-up of the first decode excluded).  The
 stream is FILE, an HEVC bitstream whose tile columns are the WORLD *
 LOCAL_BANDS bands; without ``--stream`` every process encodes the same
 3-picture IPP stream (32 columns a band, 96 rows, QP 30, 32x32 CTBs, one
 tile a band, deblocking and SAO).  Each packs only its own bands, checks
 them against the same columns of the sequential host decode (every MD5 of
-which must be correct) and prints ``worker <rank> OK decode_s=<seconds>``.
+which must be correct) and prints ``worker <rank> OK decode_s=<seconds>``
+(the best of the R decodes).
 """
 from __future__ import annotations
 
@@ -52,14 +58,17 @@ def _option(argv, name):
 def main(argv):
     backend, argv = _option(argv, "--backend")
     path, argv = _option(argv, "--stream")
+    n_dev, argv = _option(argv, "--local-devices")
+    reps, argv = _option(argv, "--reps")
+    n_dev, reps = int(n_dev or 1), int(reps or 1)
     port, rank, world, local = (argv[0], int(argv[1]), int(argv[2]),
                                 int(argv[3]))
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     if backend == "nccl":
-        torch.cuda.set_device(rank)
-        dev = torch.device("cuda", rank)
+        cards = [torch.device("cuda", rank * n_dev + j) for j in range(n_dev)]
+        torch.cuda.set_device(cards[0])
     else:
-        dev = torch.device("cpu")
+        cards = [torch.device("cpu")] * n_dev
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     try:
@@ -72,19 +81,24 @@ def main(argv):
         else:
             with open(path, "rb") as f:
                 stream = f.read()
-        layout = BandLayout([dev] * local, distributed=True)
+        layout = BandLayout([cards[k * n_dev // local]
+                             for k in range(local)], distributed=True)
         frames, ref_planes, (hl, hc) = prepare_gop_banded(
             stream, n_bands, bands=layout.bands)
         if not all(f["md5_ok"] for f in frames):
             raise RuntimeError("an MD5 of the sequential decode is wrong")
         if not any(pf.mc_groups for f in frames for pf in f["bands"].values()):
             raise RuntimeError("the stream has no inter content")
-        dist.barrier()
-        t0 = time.perf_counter()
-        outs = decode_gop_banded(layout, frames, hl, hc)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        decode_s = time.perf_counter() - t0
+        decode_s = None
+        for _rep in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            outs = decode_gop_banded(layout, frames, hl, hc)
+            for dev in set(cards):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            decode_s = dt if decode_s is None else min(decode_s, dt)
         band_w = frames[0]["band_w"]
         sub = frames[0]["sub_w"]
         for i, (out, want) in enumerate(zip(outs, ref_planes)):

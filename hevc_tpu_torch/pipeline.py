@@ -56,6 +56,34 @@ def _upload(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def host_views(meta, meta16, S):
+    """Host views of a pack's buffers in the frame program's layout:
+    (intra records [n_chunks, B_c, 8], residual rows [N_c, 9], inter
+    residual rows [R_c, 3]) per class from ``meta`` (int32, in that
+    order), and the MC groups (is_ch, bi, wp, kind, w, h, rows [n, 17])
+    from ``meta16``; ``S`` is the pack's spec as a dict."""
+    pos = 0
+
+    def take(n, shape):
+        nonlocal pos
+        out = meta[pos:pos + n].reshape(shape)
+        pos += n
+        return out
+
+    nc = S["n_chunks"]
+    scal = [take(nc * S["B"][c] * 8, (nc, S["B"][c], 8)) for c in range(4)]
+    rmeta = [take(S["nlv"][c] * 9, (S["nlv"][c], 9)) for c in range(4)]
+    fields = [take(S["resid_rows"][c] * 3, (S["resid_rows"][c], 3))
+              for c in range(4)]
+    meta16 = np.asarray(meta16)
+    groups, pos16 = [], 0
+    for is_ch, bi, wp, kind, w, h, nrow in S["mc_groups"]:
+        groups.append((is_ch, bi, wp, kind, w, h,
+                       meta16[pos16:pos16 + nrow * 17].reshape(nrow, 17)))
+        pos16 += nrow * 17
+    return scal, rmeta, fields, groups
+
+
 def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
                   canvas0, refs_y, refs_cb, refs_cr, spec, device):
     """One frame's stage B on ``device`` from the packed host buffers.
@@ -76,13 +104,11 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     h4, w4 = S["h4"], S["w4"]
     cth, ctw = S["ctb_h"], S["ctb_w"]
 
-    # host side: which wavefront chunks hold intra records, per class
+    # host side: which wavefront chunks hold intra records, per class; the
+    # MC rows stay on the host: mc_cuda builds the kernel's one row table
+    # from them and uploads it
     meta = np.asarray(meta, np.int32)
-    scal_np, pos = [], 0
-    for c in range(4):
-        n = n_chunks * S["B"][c] * 8
-        scal_np.append(meta[pos:pos + n].reshape(n_chunks, S["B"][c], 8))
-        pos += n
+    scal_np, _rmeta, _fields, mc_groups = host_views(meta, meta16, S)
     counts = chunk_counts(scal_np)
 
     meta_d = _upload(meta, device)
@@ -101,15 +127,6 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     scal = [take(n_chunks * S["B"][c] * 8, (n_chunks, S["B"][c], 8))
             for c in range(4)]
     rmeta = [take(S["nlv"][c] * 9, (S["nlv"][c], 9)) for c in range(4)]
-    # MC rows stay on the host: mc_cuda builds the kernel's one row table
-    # from them and uploads it
-    meta16 = np.asarray(meta16)
-    pos16 = 0
-    mc_groups = []
-    for (is_ch, bi, wp, kind, w, h, nrow) in S["mc_groups"]:
-        rows = meta16[pos16:pos16 + nrow * 17].reshape(nrow, 17)
-        pos16 += nrow * 17
-        mc_groups.append((is_ch, bi, wp, kind, w, h, rows))
     resid_fields = [take(S["resid_rows"][c] * 3, (S["resid_rows"][c], 3))
                     for c in range(4)]
     sao_t = take(3 * cth * ctw, (3, cth, ctw))
