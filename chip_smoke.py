@@ -34,7 +34,13 @@
    checked, every output and device DPB entry on the card, MC launched
    once per P picture and the residual add at least once; then holds both
    inter kernels against their plain versions on a captured P picture of
-   the stream (tolerance 0) and prints fps and the stage split;
+   the stream (tolerance 0) and prints fps and the stage split; then the
+   COO check: how many pictures of the main and formats streams shipped
+   their level pools as (idx, val) pairs on their counted decodes, and on
+   the first such picture the frame program on the pairs against the
+   frame program on the dense pool rebuilt on the host (bit for bit), the
+   dense upload, the host's pair build, the pairs' upload and the device
+   scatter timed;
 6. the SHVC phase: a two-layer stream (``SHVC_STREAM``: 1280x720 base
    layer, 1920x1080 enhancement layer, 3 access units, TMVP from the
    inter-layer reference), decoded by ``TorchDecoder`` with the kernels'
@@ -80,7 +86,10 @@
    hevc_tpu_torch.dist_worker --stream BANDED_STREAM`` over NCCL, one
    process and one band a card, each rank's band equal to the same
    columns of the sequential decode (with fewer it prints that the path
-   was not run);
+   was not run); then formats stream A (4 slices over 2x2 tiles with
+   per-slice filters, PCM) in its two tile columns, captured and counted
+   the same way (``mc`` 4), and with two cards or more through
+   ``dist_worker`` over NCCL;
 9. the frame-axis phase: ``PGOP_STREAM`` (``.bench/smoke_1920x1080_qp30_
    ctb64_pgop4b.265``: ``ParallelBGopEncoder(n_b=4)`` at the headline
    settings, I0, P5, then B1-B4 reading only the anchors) decoded by
@@ -208,6 +217,11 @@ FORMATS = {
 }
 
 
+# the banded phase's second stream: stream A in its two tile columns
+FORMAT_A = next(n for n in FORMATS if n.startswith("A "))
+BANDS_A = 2
+
+
 def format_path(name):
     return os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_"
                         f"{FORMATS[name][1]}f_fmt{name[0]}.265")
@@ -268,6 +282,15 @@ BANDS, BANDED_FRAMES = 3, 3
 BANDED = dict(wpp=False, tiles=(BANDS, 1), lf_across_tiles=True)
 BANDED_STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_tiles"
                              f"{BANDS}x1_{BANDED_FRAMES}f.265")
+# the banded phase's 4:0:0 stream: all-intra 4:0:0 pictures in three column
+# tiles, deblocked, no SAO (the 4:0:0 pictures the banded decode takes:
+# one with references, or with both deblocking and SAO, it refuses, as the
+# JAX banded decode raises there)
+MONO_FRAMES = 2
+MONO = dict(wpp=False, tiles=(BANDS, 1), gop="all_intra", sao=False,
+            chroma_format_idc=0)
+MONO_STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_tiles"
+                           f"{BANDS}x1_400_intra_{MONO_FRAMES}f.265")
 # the frame-axis phase's stream: ParallelBGopEncoder's GOP at the headline
 # settings (RA, no WPP): I0, P5, then B1-B4, which read only the anchors
 PGOP_B = 4
@@ -306,6 +329,8 @@ def stream_jobs():
     jobs[SHVC_STREAM] = (synth_shvc, (SHVC_STREAM,), {})
     jobs[BANDED_STREAM] = (synth_stream, (BANDED_STREAM, W, H, QP,
                                           BANDED_FRAMES), BANDED)
+    jobs[MONO_STREAM] = (synth_stream, (MONO_STREAM, W, H, QP, MONO_FRAMES),
+                         MONO)
     jobs[PGOP_STREAM] = (synth_pgop, (PGOP_STREAM,), {})
     return jobs
 
@@ -579,17 +604,24 @@ def counted_decode(decode, dev, pipeline, trace, build):
     references resolved from the host from 0 just before, read just after.
     For each picture through the frame program it records its layer, where
     its output and DPB entries lie, whether it is inter, its planes, PCM
-    records and slices, and whether its stage A ran in the Python syntax
-    layer; every output and DPB entry must be on ``dev``, and every
-    reference must come from the device DPB.  Returns (decode's result,
+    records and slices, whether its stage A ran in the Python syntax layer
+    and how many (idx, val) pairs its level pool shipped as (0: dense);
+    every output and DPB entry must be on ``dev``, and every reference
+    must come from the device DPB.  Returns (decode's result,
     seen, counts, split, wall seconds)."""
     from hevc_tpu_torch import native as N
-    seen = []
-    orig_finish = pipeline.finish_frame
+    seen, coo = [], []
+    orig_finish, orig_pack = pipeline.finish_frame, pipeline.pack_frame
+
+    def pack(pic):
+        out = orig_pack(pic)
+        coo.append(dict(out[6])["coo"][0])
+        return out
 
     def finish(pic, lay, poc, device):
         out = orig_finish(pic, lay, poc, device)
         seen.append(dict(
+            coo=coo[-1],
             layer=lay.layer_id,
             devices={out[0].device.type} | {
                 t.device.type for t in lay.dpb_dev[poc]},
@@ -601,7 +633,7 @@ def counted_decode(decode, dev, pipeline, trace, build):
             slices=len(pic.slice_params or ()), from_plan=bool(pic.plan)))
         return out
 
-    pipeline.finish_frame = finish
+    pipeline.finish_frame, pipeline.pack_frame = finish, pack
     trace.reset()
     build.reset_launches()
     pipeline.host_refs["count"] = 0
@@ -609,7 +641,7 @@ def counted_decode(decode, dev, pipeline, trace, build):
     try:
         result = decode()
     finally:
-        pipeline.finish_frame = orig_finish
+        pipeline.finish_frame, pipeline.pack_frame = orig_finish, orig_pack
     wall = time.perf_counter() - t0
     counts = {k: build.launches[k] for k in ("mc", "resid_add")}
     split = trace.report()
@@ -625,7 +657,8 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
     first with the kernels' inputs captured and each stage timed with the
     card synchronised around it (also the warm-up), then counted: launch
     counts from 0 just before, read just after, every MD5 checked, every
-    output and device DPB entry on the card."""
+    output and device DPB entry on the card.  Returns the counted run's
+    pictures (``counted_decode``'s ``seen``)."""
     import torch
     data = open(format_path(name), "rb").read()
     n_frames = FORMATS[name][1]
@@ -675,6 +708,87 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
                                  for k, v in sorted(split.items())))
     log(f"format {name}, captured run, stages synchronised, ms per call: "
         f"{cap.report()} ({smi})")
+    return seen
+
+
+def phase_coo(dev, smi, pipeline, sparse):
+    """The sparse (COO) level upload on the main path.  sparse: {stream
+    path: the (idx, val) pairs of each picture's level pool on its counted
+    decode, 0 where it shipped dense}.  Prints how many pictures shipped
+    sparse; then, on the first such picture (its ``frame_program`` inputs
+    captured on one more decode of its stream), holds the frame program on
+    the pairs against the frame program on the dense pool rebuilt on the
+    host (spec ``coo`` (0, total)), bit for bit, and times the dense
+    upload, the host's pair build (``pack.coo_pairs``: ``np.nonzero`` and
+    the pairs), the pairs' upload and the device scatter
+    (``pipeline.scatter_levels``)."""
+    import torch
+    from hevc_tpu_torch import decoder
+    from hevc_tpu_torch.pack import coo_pairs
+    n = sum(bool(c) for cs in sparse.values() for c in cs)
+    total_pics = sum(len(cs) for cs in sparse.values())
+    log(f"COO: {n} of the {total_pics} pictures of the 1080p main and "
+        f"formats streams shipped their level pools as (idx, val) pairs: "
+        + "; ".join(f"{os.path.basename(p)} {cs}" for p, cs in sparse.items()))
+    path = next((p for p, cs in sparse.items() if any(cs)), None)
+    assert path is not None, "COO: no picture of the 1080p streams is sparse"
+    got, calls = [], []
+    orig = pipeline.frame_program
+
+    def program(*args):
+        out = orig(*args)
+        calls.append(1)
+        if dict(args[10])["coo"][0] and not got:
+            refs = tuple([r.clone() for r in args[i]] for i in (7, 8, 9))
+            got.append((len(calls) - 1, args[:7] + refs + args[10:],
+                        [o.clone() for o in out]))
+        return out
+
+    pipeline.frame_program = program
+    try:
+        frames = decoder.TorchDecoder(check_md5=True, device=dev) \
+            .decode_bytes(open(path, "rb").read())
+    finally:
+        pipeline.frame_program = orig
+    assert all(f.md5_ok is True for f in frames), "COO: MD5"
+    k, args, out = got[0]
+    idx, val = args[4]
+    spec = dict(args[10])
+    coo_n, total = spec["coo"]
+    pool = np.zeros(total, np.int16)
+    keep = idx < total
+    np.put(pool, idx[keep], val[keep])
+    dense_spec = tuple((k, (0, total) if k == "coo" else v)
+                       for k, v in args[10])
+    dense = orig(*args[:4], pool, *args[5:10], dense_spec, dev)
+    same = [torch.equal(a, b) for a, b in zip(out, dense)]
+    assert all(same), f"COO: frame program on the pairs != dense: {same}"
+    again = coo_pairs(pool)
+    assert np.array_equal(again[0], idx) and np.array_equal(again[1], val)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        coo_pairs(pool)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    dense_ms = cuda_ms(lambda: torch.from_numpy(pool).to(dev))
+    pair_ms = cuda_ms(lambda: (torch.from_numpy(idx).to(dev),
+                               torch.from_numpy(val).to(dev)))
+    idx_d = torch.from_numpy(idx).to(dev)
+    val_d = torch.from_numpy(val).to(dev)
+    scat = pipeline.scatter_levels(idx_d, val_d, total)
+    assert torch.equal(scat.cpu(), torch.from_numpy(pool)), "COO: scatter"
+    scatter_ms = cuda_ms(lambda: pipeline.scatter_levels(idx_d, val_d, total))
+    log(f"COO: {os.path.basename(path)}, picture {k} in decode order "
+        f"({'P' if spec['n_refs'] else 'I'}): {coo_n} pairs "
+        f"({int(keep.sum())} nonzero) for a pool of {total} levels; "
+        f"frame program on the pairs == on the dense pool (every output, "
+        f"bit for bit); bytes up {6 * coo_n} against {2 * total} (factor "
+        f"{2 * total / (6 * coo_n)}) ({smi})")
+    log(f"COO times: dense upload {dense_ms} ms (CUDA events, pageable); "
+        f"pairs: host np.nonzero + pair build {host_ms} ms (perf counter), "
+        f"upload {pair_ms} ms, device scatter {scatter_ms} ms (CUDA events); "
+        f"COO total on the card {pair_ms + scatter_ms} ms against "
+        f"{dense_ms} ms dense ({smi})")
 
 
 # tests/test_cgs.py DELTAS1: the colour-mapping LUT the SHVC phase times
@@ -902,42 +1016,23 @@ def displayed(planes, shapes):
     return [np.asarray(p)[:h, :w] for p, (h, w) in zip(planes, shapes)]
 
 
-def phase_banded(dev, smi, decoder, pipeline, build):
-    """BANDED_STREAM in BANDS column bands through ``sharded`` (on one card,
-    or spread over the cards there are): the host's stage A and band packs
-    (``band.prepare_gop_banded``, every MD5 of its decode correct), a
-    captured ``decode_gop_banded`` run (kernel inputs of every band; stage B
-    and each halo exchange timed with the cards synchronised), a counted
-    run (launch counts and host references from 0 just before, read just
-    after; each picture's stage B by CUDA events), both inter kernels
-    against their plain versions on a P picture's bands 0 and 1, the
-    streaming decode with the halo widened mid-GOP, ``TorchDecoder`` on the
-    same stream for comparison, and with BANDS cards or more
-    ``dist_worker`` on the same stream over NCCL, one process and one band
-    a card."""
+def check_bands(outs, ref, what):
+    """Every decoded picture's stitched bands equal the sequential host
+    decode's planes."""
+    from hevc_tpu_torch import sharded
+    assert len(outs) == len(ref), what
+    for i, (out, want) in enumerate(zip(outs, ref)):
+        bad = first_diff(sharded.stitch(out), want)
+        assert not bad, f"{what}: picture {i} {bad}"
+
+
+def counted_banded(layout, frames, halo, pipeline, build):
+    """``decode_gop_banded`` picture by picture, counted: launch counts and
+    host references from 0 just before, read just after; each picture's
+    stage B by CUDA events, the cards synchronised.  Returns (outputs, ms
+    per picture, launch counts, references from the host)."""
     import torch
-    from hevc_tpu_torch import band, sharded
-    data = open(BANDED_STREAM, "rb").read()
-    t0 = time.perf_counter()
-    frames, ref, halo = band.prepare_gop_banded(data, BANDS)
-    stage_a = time.perf_counter() - t0
-    md5 = [f["md5_ok"] for f in frames]
-    assert md5 == [True] * BANDED_FRAMES, f"banded: host decode MD5 {md5}"
-    n_inter = sum(bool(f["ref_pocs_l0"] or f["ref_pocs_l1"]) for f in frames)
-    assert n_inter == BANDED_FRAMES - 1
-    devs = cards()
-    layout = sharded.BandLayout.over(BANDS, devs)
-
-    def check(outs, what):
-        assert len(outs) == BANDED_FRAMES, what
-        for i, (out, want) in enumerate(zip(outs, ref)):
-            bad = first_diff(sharded.stitch(out), want)
-            assert not bad, f"banded ({what}): picture {i} {bad}"
-
-    cap = BandCapture()
-    with cap.installed():
-        check(sharded.decode_gop_banded(layout, frames, *halo), "captured")
-
+    from hevc_tpu_torch import sharded
     dpb, outs, ev_ms = {}, [], []
     build.reset_launches()
     pipeline.host_refs["count"] = 0
@@ -951,17 +1046,64 @@ def phase_banded(dev, smi, decoder, pipeline, build):
         e1.synchronize()
         ev_ms.append(e0.elapsed_time(e1))
     counts = {k: build.launches[k] for k in ("mc", "resid_add")}
-    host = pipeline.host_refs["count"]
-    check(outs, "counted")
-    assert host == 0, f"banded: {host} references from the host"
-    assert counts["mc"] == BANDS * n_inter and counts["resid_add"] > 0, \
-        f"banded: launches {counts} for {n_inter} P pictures x {BANDS} bands"
+    return outs, ev_ms, counts, pipeline.host_refs["count"]
 
+
+def banded_decode(path, n_bands, n_frames, label, pipeline, build):
+    """``path`` in n_bands column bands through ``sharded`` (on one card,
+    or spread over the cards there are): the host's stage A and band packs
+    (``band.prepare_gop_banded``, every MD5 of its decode correct), a
+    captured ``decode_gop_banded`` run (kernel inputs of every band; stage
+    B and each halo exchange timed with the cards synchronised), a counted
+    run (launch counts and host references from 0 just before, read just
+    after; each picture's stage B by CUDA events): every plane equal to
+    the sequential decode, no reference from the host, ``mc`` once per band
+    of each P picture; both inter kernels against their plain versions on
+    the last P picture's bands 0 and 1.  Returns what the phase prints."""
+    from hevc_tpu_torch import band, sharded
+    data = open(path, "rb").read()
+    t0 = time.perf_counter()
+    frames, ref, halo = band.prepare_gop_banded(data, n_bands)
+    stage_a = time.perf_counter() - t0
+    md5 = [f["md5_ok"] for f in frames]
+    assert md5 == [True] * n_frames, f"{label}: host decode MD5 {md5}"
+    n_inter = sum(bool(f["ref_pocs_l0"] or f["ref_pocs_l1"]) for f in frames)
+    assert n_inter == n_frames - 1
+    layout = sharded.BandLayout.over(n_bands, cards())
+    cap = BandCapture()
+    with cap.installed():
+        check_bands(sharded.decode_gop_banded(layout, frames, *halo), ref,
+                    f"{label} (captured)")
+    outs, ev_ms, counts, host = counted_banded(layout, frames, halo,
+                                               pipeline, build)
+    check_bands(outs, ref, f"{label} (counted)")
+    assert host == 0, f"{label}: {host} references from the host"
+    assert counts["mc"] == n_bands * n_inter and counts["resid_add"] > 0, \
+        f"{label}: launches {counts} for {n_inter} P pictures x {n_bands} " \
+        "bands"
     poc = frames[-1]["poc"]
     errs = {k: kernel_errors(cap.mc[(poc, k)], cap.resid[(poc, k)])
             for k in (0, 1)}
     assert all(e == (0, 0) for e in errs.values()), \
-        f"banded: kernels != plain on POC {poc}'s bands: {errs}"
+        f"{label}: kernels != plain on POC {poc}'s bands: {errs}"
+    return dict(data=data, frames=frames, ref=ref, halo=halo, layout=layout,
+                outs=outs, ev_ms=ev_ms, counts=counts, cap=cap, errs=errs,
+                poc=poc, n_inter=n_inter, stage_a=stage_a)
+
+
+def phase_banded(dev, smi, decoder, pipeline, build):
+    """BANDED_STREAM in BANDS column bands (``banded_decode``), then the
+    streaming decode with the halo widened mid-GOP, ``TorchDecoder`` on
+    the same stream for comparison, and with BANDS cards or more
+    ``dist_worker`` on the same stream over NCCL, one process and one band
+    a card; then formats stream A, several slices over 2 x 2 tiles with
+    per-slice filters and PCM, in BANDS_A bands (``phase_banded_slices``),
+    and MONO_STREAM in BANDS bands (``phase_banded_mono``)."""
+    from hevc_tpu_torch import band, sharded
+    r = banded_decode(BANDED_STREAM, BANDS, BANDED_FRAMES, "banded",
+                      pipeline, build)
+    data, layout, outs, halo = r["data"], r["layout"], r["outs"], r["halo"]
+    counts, errs, poc, cap = r["counts"], r["errs"], r["poc"], r["cap"]
 
     orig = band.required_halo_frame
     calls, halos = [], []
@@ -987,7 +1129,7 @@ def phase_banded(dev, smi, decoder, pipeline, build):
     finally:
         band.required_halo_frame = orig
     stream_s = time.perf_counter() - t0
-    check(souts, "streamed, halo widened")
+    check_bands(souts, r["ref"], "banded (streamed, halo widened)")
     assert halos[2][0] > halos[1][0] and halos[2][1] > halos[1][1], \
         f"banded: the halo did not widen at the third picture {halos}"
 
@@ -1013,40 +1155,107 @@ def phase_banded(dev, smi, decoder, pipeline, build):
         f"{BANDED_FRAMES} pictures (I P P): every plane == the sequential "
         f"host decode (every MD5 correct) on the captured, counted and "
         f"streamed runs, and == TorchDecoder; 0 references from the host; "
-        f"launches {counts} ({n_inter} P pictures x {BANDS} bands); "
+        f"launches {counts} ({r['n_inter']} P pictures x {BANDS} bands); "
         f"mc_kernel and resid_add_kernel == plain on POC {poc}'s bands 0 "
         f"and 1 (errors {errs}); streamed halos {halos}")
     log(f"banded stage A on the host (Decoder(recon_backend='plan'), its "
-        f"NumPy stage B and filters, then the band packs): {stage_a:.3f} s "
-        f"for {BANDED_FRAMES} pictures; the streamed run with its own stage "
-        f"A on a worker thread {stream_s:.3f} s ({smi})")
+        f"NumPy stage B and filters, then the band packs): "
+        f"{r['stage_a']:.3f} s for {BANDED_FRAMES} pictures; the streamed "
+        f"run with its own stage A on a worker thread {stream_s:.3f} s "
+        f"({smi})")
     share = [x / t for x, t in zip(cap.exchanges, cap.step_ms)]
-    log(f"banded stage B, ms per picture: {ev_ms} (CUDA events, counted "
-        f"run); captured run with the cards synchronised {cap.step_ms}, of "
-        f"which halo exchanges {cap.exchanges} (share {share}) ({smi})")
+    log(f"banded stage B, ms per picture: {r['ev_ms']} (CUDA events, "
+        f"counted run); captured run with the cards synchronised "
+        f"{cap.step_ms}, of which halo exchanges {cap.exchanges} (share "
+        f"{share}) ({smi})")
     log(f"TorchDecoder on the banded stream: {torch_s:.3f} s with the MD5 "
         f"fetch, {torch_ready_s:.3f} s to the last picture on the card "
         f"without it, {BANDED_FRAMES} pictures ({smi})")
-    banded_over_nccl(len(devs), smi)
+    banded_over_nccl(len(cards()), smi, BANDED_STREAM, BANDS)
+    phase_banded_slices(smi, pipeline, build)
+    phase_banded_mono(smi, pipeline, build)
 
 
-def banded_over_nccl(n_cards, smi):
-    """BANDED_STREAM through ``python -m hevc_tpu_torch.dist_worker`` over
-    NCCL, one process and one band a card, each rank's band checked against
-    the same columns of the sequential decode; with fewer than BANDS cards
-    a line says that it did not run."""
-    if n_cards < BANDS:
-        log(f"banded across processes (dist_worker over NCCL): {n_cards} "
-            f"card(s) visible, the {BANDS}-band stream needs {BANDS}, one "
-            f"rank a band; not run")
+def phase_banded_slices(smi, pipeline, build):
+    """Formats stream A (1920x1080, 4 slices over 2 x 2 tiles with their
+    own filter offsets, one slice without deblocking and one without loop
+    filtering across its edges, no loop filtering across tiles, PCM exempt
+    from the filters) in BANDS_A bands, one a tile column
+    (``banded_decode``): the band filters take the gated boundary
+    strengths, the offset maps, the SAO edge restrictions and the PCM
+    exemption; with BANDS_A cards or more ``dist_worker`` on it over NCCL,
+    one process and one band a card."""
+    name = FORMAT_A
+    n_frames = FORMATS[name][1]
+    r = banded_decode(format_path(name), BANDS_A, n_frames, "banded A",
+                      pipeline, build)
+    fis = [f["filters"] for f in r["frames"]]
+    assert all(fi.per_slice and fi.sao_flags is not None for fi in fis), \
+        "banded A: not per-slice filter inputs"
+    assert fis[0].no_filter is not None, "banded A: no PCM exemption"
+    cap = r["cap"]
+    log(f"banded A {W}x{H} ({name}), {BANDS_A} tile-aligned bands of "
+        f"{W // BANDS_A} columns on {[str(d) for d in r['layout'].devices]},"
+        f" halo {r['halo']}, {n_frames} pictures (I P P), per-slice filter "
+        f"maps, SAO edge restrictions and the PCM exemption on the bands: "
+        f"every plane == the sequential host decode (every MD5 correct) on "
+        f"the captured and counted runs; 0 references from the host; "
+        f"launches {r['counts']} ({r['n_inter']} P pictures x {BANDS_A} "
+        f"bands); mc_kernel and resid_add_kernel == plain on POC "
+        f"{r['poc']}'s bands 0 and 1 (errors {r['errs']})")
+    log(f"banded A stage A on the host: {r['stage_a']:.3f} s for {n_frames} "
+        f"pictures; stage B ms per picture {r['ev_ms']} (CUDA events, "
+        f"counted run); captured run with the cards synchronised "
+        f"{cap.step_ms}, of which halo exchanges {cap.exchanges} ({smi})")
+    banded_over_nccl(len(cards()), smi, format_path(name), BANDS_A)
+
+
+def phase_banded_mono(smi, pipeline, build):
+    """MONO_STREAM (1920x1080 4:0:0 intra pictures, deblocked) in BANDS
+    column bands, counted: every plane equal to the sequential host decode
+    (every MD5 correct), luma alone, no reference from the host, no MC
+    launch (no inter picture); each picture's stage B by CUDA events."""
+    from hevc_tpu_torch import band, sharded
+    data = open(MONO_STREAM, "rb").read()
+    t0 = time.perf_counter()
+    frames, ref, halo = band.prepare_gop_banded(data, BANDS)
+    stage_a = time.perf_counter() - t0
+    md5 = [f["md5_ok"] for f in frames]
+    assert md5 == [True] * MONO_FRAMES, f"banded 4:0:0: MD5 {md5}"
+    assert all(f["mono"] and f["filters"].do_deblock for f in frames)
+    layout = sharded.BandLayout.over(BANDS, cards())
+    outs, ev_ms, counts, host = counted_banded(layout, frames, halo,
+                                               pipeline, build)
+    assert host == 0 and counts["mc"] == 0, (host, counts)
+    assert all(len(w) == 1 for w in ref) and all(
+        len(b) == 1 for out in outs for b in out), \
+        "banded 4:0:0: not luma alone"
+    check_bands(outs, ref, "banded 4:0:0")
+    log(f"banded 4:0:0 {W}x{H}, {MONO_FRAMES} intra pictures deblocked, "
+        f"{BANDS} bands: every luma plane == the sequential host decode "
+        f"(every MD5 correct); 0 references from the host; launches "
+        f"{counts}; stage A on the host {stage_a:.3f} s; stage B ms per "
+        f"picture {ev_ms} (CUDA events) ({smi})")
+
+
+def banded_over_nccl(n_cards, smi, path, n_bands):
+    """``path`` through ``python -m hevc_tpu_torch.dist_worker`` over NCCL,
+    one process and one band a card, each rank's band checked against the
+    same columns of the sequential decode; with fewer than n_bands cards a
+    line says that it did not run."""
+    what = os.path.basename(path)
+    if n_cards < n_bands:
+        log(f"banded across processes (dist_worker over NCCL) on {what}: "
+            f"{n_cards} card(s) visible, its {n_bands} bands need "
+            f"{n_bands}, one rank a band; not run")
         return
-    port, world = free_port(), BANDS
+    port, world = free_port(), n_bands
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "hevc_tpu_torch.dist_worker", str(port),
-         str(r), str(world), "1", "--stream", BANDED_STREAM,
-         "--backend", "nccl"], cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         str(r), str(world), "1", "--stream", path, "--backend", "nccl"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
         for r in range(world)]
     try:
         outs = [p.communicate(timeout=300)[0] for p in procs]
@@ -1057,11 +1266,10 @@ def banded_over_nccl(n_cards, smi):
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"worker {r} OK" in out, \
-            f"dist_worker rank {r} over NCCL:\n{out[-3000:]}"
-    log(f"banded across processes: dist_worker over NCCL on the {W}x{H} "
-        f"banded stream, {world} ranks x 1 band, each rank's band == the "
-        f"sequential decode: " + "; ".join(
-            o.strip().splitlines()[-1] for o in outs)
+            f"dist_worker rank {r} over NCCL on {what}:\n{out[-3000:]}"
+    log(f"banded across processes: dist_worker over NCCL on {what}, "
+        f"{world} ranks x 1 band, each rank's band == the sequential "
+        f"decode: " + "; ".join(o.strip().splitlines()[-1] for o in outs)
         + f" ({time.perf_counter() - t0:.1f} s with start-up) ({smi})")
 
 
@@ -1484,8 +1692,12 @@ def run(smi, dev):
 
     real = phase_real_kernels(cap, dev)
     phase_bench(dev, smi)
+    sparse = {STREAM: [s["coo"] for s in seen]}
     for name in FORMATS:
-        phase_format(name, dev, smi, decoder, pipeline, trace, build)
+        sparse[format_path(name)] = [
+            s["coo"] for s in phase_format(name, dev, smi, decoder, pipeline,
+                                           trace, build)]
+    phase_coo(dev, smi, pipeline, sparse)
     phase_shvc(dev, smi, cli, decoder, pipeline, trace, build)
     kernels = []
     for name, line in (("mc", 161), ("resid_add", 356)):

@@ -21,12 +21,8 @@ import dataclasses
 
 import numpy as np
 
-from .pack import PAD_REF, pack_frame_plan
+from .pack import PAD_REF, filter_inputs, pack_frame_plan
 from .recon import pack_sao_params
-
-# the features the banded decode refuses: the reference's band filters take
-# one chroma factor, picture-wide offsets and no slice/tile edge flags
-_ITEM8 = "(ROADMAP Queue 1 item 8)"
 
 
 def _round_up(x, m):
@@ -190,27 +186,44 @@ def required_halo(plans, sps, n_bands):
     return hl, hc
 
 
+def _has_sao(pic):
+    return bool(getattr(pic, "has_sao", False)) \
+        or bool(getattr(pic, "sao_map", None))
+
+
 def check_banded(pic, n_bands):
     """Raise ValueError where the tile columns are not the bands
-    (``check_band_layout``), and NotImplementedError for what the banded
-    decode does not do: the reference's band filters take one chroma
-    factor, picture-wide filter offsets and no slice or tile edge
-    restriction, and exempt no PCM/TQB sample."""
+    (``check_band_layout``), and NotImplementedError for the pictures the
+    JAX package's banded decode (``hevc_tpu.tpu.band`` /
+    ``hevc_tpu.tpu.sharded``) raises on too: 4:0:0 with references, or
+    with both deblocking and SAO; 4:2:2 with deblocking or SAO.  Several
+    slices, tiles without loop filtering across them, the PCM/TQB filter
+    exemption and the other 4:0:0 and 4:2:2 pictures decode."""
     check_band_layout(pic, n_bands)
-    sps, pps = pic.sps, pic.pps
-    if sps.chroma_format_idc in (0, 2):
+    cf = pic.sps.chroma_format_idc
+    sao = _has_sao(pic)
+    if cf == 0 and (getattr(pic, "ref_list_l0", None)
+                    or getattr(pic, "ref_list_l1", None)):
         raise NotImplementedError(
-            f"banded decode: chroma_format_idc {sps.chroma_format_idc} "
-            f"(4:0:0 and 4:2:2 are not banded) {_ITEM8}")
-    if len(getattr(pic, "slice_params", None) or ()) > 1 or (
-            pps.tiles_enabled and not pps.loop_filter_across_tiles):
+            "banded decode: a 4:0:0 picture with references (the JAX "
+            "banded decode raises IndexError at hevc_tpu/tpu/pack.py:274, "
+            "packing the chroma reference planes 4:0:0 has not)")
+    deblock = getattr(pic, "deblock_params", None) is not None
+    if cf == 0 and deblock and sao:
         raise NotImplementedError(
-            "banded decode: per-slice filter maps (several slices, or "
-            f"tiles without loop filtering across them) {_ITEM8}")
-    nf = getattr(pic, "no_filter", None)
-    if nf is not None and nf.any():
+            "banded decode: 4:0:0 with deblocking and SAO (the JAX banded "
+            "decode raises TypeError at hevc_tpu/tpu/sharded.py:72, its "
+            "_sao_local on the placeholder chroma its deblocking cut)")
+    if cf == 2 and deblock:
         raise NotImplementedError(
-            f"banded decode: PCM/transquant-bypass filter exemption {_ITEM8}")
+            "banded decode: 4:2:2 with deblocking (the JAX banded decode "
+            "raises TypeError at hevc_tpu/tpu/filters.py:107, its chroma "
+            "filter taking one subsampling factor)")
+    if cf == 2 and sao:
+        raise NotImplementedError(
+            "banded decode: 4:2:2 with SAO (the JAX banded decode raises "
+            "TypeError at hevc_tpu/tpu/sharded.py:72, _sao_local taking "
+            "one chroma CTB size for both axes)")
 
 
 def _capture_entry(pic, plan, dpb_pocs):
@@ -218,8 +231,7 @@ def _capture_entry(pic, plan, dpb_pocs):
                 ref_pocs_l0=[e[0] for e in
                              (getattr(pic, "ref_list_l0", []) or [])],
                 ref_pocs_l1=[e[0] for e in
-                             (getattr(pic, "ref_list_l1", []) or [])],
-                dbp=getattr(pic, "deblock_params", None))
+                             (getattr(pic, "ref_list_l1", []) or [])])
 
 
 def capture_plans(stream: bytes):
@@ -272,31 +284,22 @@ def prepare_gop_banded(stream: bytes, n_bands, halo_l="auto", halo_c="auto",
 
 def _bundle_frame(ent, n_bands, halo_l, halo_c, bands=None):
     """One picture's bundle for ``sharded.decode_gop_banded``: the packed
-    bands, the picture-wide QP / boundary-strength maps, deblocking offsets
-    and SAO maps, the picture's reference POCs, and the POCs its DPB keeps
+    bands, the picture-wide filter inputs (``pack.filter_inputs``, what
+    the single-device pack ships: QP, gated boundary strengths, offsets or
+    per-4x4 offset maps, SAO edge restrictions, PCM/TQB exemption) and SAO
+    maps, the picture's reference POCs, and the POCs its DPB keeps
     (``dpb_pocs``: the device DPB drops every other picture)."""
     pic = ent["pic"]
     check_banded(pic, n_bands)
     sps = pic.sps
     pfs, band_w = pack_frame_bands(pic, ent["plan"], n_bands, halo_l,
                                    halo_c, bands)
-    dbp = ent["dbp"]
-    do_deblock = dbp is not None
-    if do_deblock:
-        pic.compute_bs()
     return dict(
         bands=pfs, n_bands=n_bands, band_w=band_w, poc=pic.poc,
         ref_pocs_l0=ent["ref_pocs_l0"], ref_pocs_l1=ent["ref_pocs_l1"],
-        dpb_pocs=ent["dpb_pocs"],
-        qp4=pic.qp_y.astype(np.int32),
-        bs_v=pic.bs_v.astype(np.int32) if do_deblock else None,
-        bs_h=pic.bs_h.astype(np.int32) if do_deblock else None,
-        dboff=(dbp["beta_offset"], dbp["tc_offset"], dbp["cb_qp_offset"],
-               dbp["cr_qp_offset"]) if do_deblock else (0, 0, 0, 0),
+        dpb_pocs=ent["dpb_pocs"], filters=filter_inputs(pic),
         sao=tuple(np.asarray(a) for a in pack_sao_params(pic)),
-        do_deblock=do_deblock,
-        do_sao=bool(getattr(pic, "has_sao", False))
-        or bool(getattr(pic, "sao_map", None)),
+        do_sao=_has_sao(pic), mono=sps.chroma_format_idc == 0,
         bit_depth=sps.bit_depth_luma, ctb_log2=sps.log2_ctb_size,
         sub_w=sps.sub_w, sub_h=sps.sub_h)
 

@@ -103,6 +103,8 @@ def stage_b_work(args):
     the two inter kernels only (``mc_work``, ``resid_work``):
 
     - ``upload``: the packed buffers and the MC row table, written once;
+      a level pool shipped as (idx, val) pairs (spec ``coo``) counts its
+      6 bytes a pair and the scatter's write of the dense int16 pool;
     - ``residuals``: the int16 levels and their rows read, the int32
       pools (a zero slot each) written;
     - ``mc``, ``resid_add``: ``mc_work`` and ``resid_work``;
@@ -115,7 +117,7 @@ def stage_b_work(args):
       (``sao_luma`` the luma plane's share);
     - ``output``: the planes read once, the fused output and the
       PAD_REF-padded references of the device DPB written once."""
-    (meta, meta16, meta8, avail_u8, levels16, _bank, canvas0, refs_y,
+    (meta, meta16, meta8, avail_u8, _levels16, _bank, canvas0, refs_y,
      refs_cb, refs_cr, spec, _device) = args
     S = dict(spec)
     scal, rmeta, fields, groups = host_views(np.asarray(meta, np.int32),
@@ -123,16 +125,17 @@ def stage_b_work(args):
     canvas_shape = tuple(canvas0 if isinstance(canvas0, tuple)
                          else np.shape(canvas0))
     table = mc_cuda.mc_table(groups, canvas_shape)
+    coo_n, total = S["coo"]
+    levels_b = 2 * total          # the dense int16 pool
     work = {"upload": (int(np.asarray(meta).nbytes
                            + np.asarray(meta8).nbytes
                            + np.asarray(avail_u8).nbytes
-                           + np.asarray(levels16).nbytes
+                           + (6 * coo_n + levels_b if coo_n else levels_b)
                            + table.rows.nbytes), 0)}
     sizes = [4 << c for c in range(4)]
     pool_px = sum((S["nlv"][c] + 1) * s * s for c, s in enumerate(sizes))
-    work["residuals"] = (int(np.asarray(levels16).nbytes
-                             + sum(r.nbytes for r in rmeta) + 4 * pool_px),
-                         0)
+    work["residuals"] = (int(levels_b + sum(r.nbytes for r in rmeta)
+                             + 4 * pool_px), 0)
     if S["n_refs"]:
         refs_l = torch.stack(list(refs_y))
         refs_c = refs_l if S["mono"] else torch.stack(list(refs_cb)

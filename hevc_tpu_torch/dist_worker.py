@@ -6,16 +6,18 @@
 
 Start it WORLD times, RANK 0 .. WORLD - 1, with one free TCP port on this
 host.  Each process joins a ``torch.distributed`` group
-(``tcp://localhost:PORT``; by default NCCL when cards are visible, else
-gloo on the CPU), owns LOCAL_BANDS consecutive column bands of WORLD *
-LOCAL_BANDS, and runs ``sharded.decode_gop_banded`` over them, the halos
-to the neighbouring ranks through ``batch_isend_irecv``.  Over NCCL rank
-RANK takes N consecutive cards (RANK * N .. RANK * N + N - 1; N = 1 by
-default) and spreads its bands over them in contiguous blocks; over gloo
-every band is on ``cpu``.  With R > 1 it decodes the GOP R times and
-reports the best time (the set-up of the first decode excluded).  The
-stream is FILE, an HEVC bitstream whose tile columns are the WORLD *
-LOCAL_BANDS bands; without ``--stream`` every process encodes the same
+(``tcp://localhost:PORT``; NCCL on the cards by default, gloo on the
+CPU only when ``--backend gloo`` asks for it: with no card and no
+``--backend`` it raises), owns LOCAL_BANDS consecutive column bands of
+WORLD * LOCAL_BANDS, and runs ``sharded.decode_gop_banded`` over them,
+the halos to the neighbouring ranks through ``batch_isend_irecv``.
+Over NCCL rank RANK takes N consecutive cards (RANK * N .. RANK * N + N
+- 1; N = 1 by default) and spreads its bands over them in contiguous
+blocks; over gloo every band is on ``cpu``.  With R > 1 it decodes the
+GOP R times and reports the best time (the set-up of the first decode
+excluded).  The stream is FILE, an HEVC bitstream whose tile columns
+are the WORLD * LOCAL_BANDS bands; without ``--stream`` every process
+encodes the same
 3-picture IPP stream (32 columns a band, 96 rows, QP 30, 32x32 CTBs, one
 tile a band, deblocking and SAO).  Each packs only its own bands, checks
 them against the same columns of the sequential host decode (every MD5 of
@@ -63,7 +65,12 @@ def main(argv):
     n_dev, reps = int(n_dev or 1), int(reps or 1)
     port, rank, world, local = (argv[0], int(argv[1]), int(argv[2]),
                                 int(argv[3]))
-    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    if backend is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dist_worker: no CUDA device is visible and no --backend was "
+                "given; pass --backend gloo to run the bands on the CPU")
+        backend = "nccl"
     if backend == "nccl":
         cards = [torch.device("cuda", rank * n_dev + j) for j in range(n_dev)]
         torch.cuda.set_device(cards[0])

@@ -226,14 +226,15 @@ def _upsample(m, lh, lw, h, w):
         :h, :w]
 
 
-def _restricted(k, fl, lh, lw, h, w, dev):
+def _restricted(k, fl, lh, lw, h, xx, w):
     """Edge-SAO samples of class k that stay unfiltered at restricted
     slice/tile borders (per-CTB ``boundaries.SAO_*`` bits ``fl``, already
     per pixel): whole border rows and columns, except the corners whose
     diagonal neighbour stays legal (reference: hevcdsp_template.c:438
-    sao_edge_restore_1)."""
+    sao_edge_restore_1).  xx: the plane's columns in frame coordinates
+    ([1, wb]), w the frame's width."""
+    dev = fl.device
     yy = torch.arange(h, device=dev)[:, None]
-    xx = torch.arange(w, device=dev)[None, :]
     xm, ym = xx & ((1 << lw) - 1), yy & ((1 << lh) - 1)
     cond_l, cond_t = xm == 0, ym == 0
     cond_r = (xm == (1 << lw) - 1) | (xx == w - 1)
@@ -248,7 +249,7 @@ def _restricted(k, fl, lh, lw, h, w, dev):
     s_ur = ~d1 & ~at_t & ~at_r if k == 3 else no
     s_lr = ~d2 & ~at_r & ~at_b if k == 2 else no
     s_ll = ~d3 & ~at_l & ~at_b if k == 3 else no
-    restr = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    restr = torch.zeros(fl.shape, dtype=torch.bool, device=dev)
     if k != 1:
         restr |= ve0 & cond_l & ~(cond_t & s_ul) & ~(cond_b & s_ll)
         restr |= ve1 & cond_r & ~(cond_t & s_ur) & ~(cond_b & s_lr)
@@ -263,18 +264,24 @@ def _restricted(k, fl, lh, lw, h, w, dev):
 
 
 def sao_plane(plane, type_map, band_pos, offs4, eo_class, ctb_log2, bd,
-              edge_flags=None, nf=None):
-    """SAO for one plane (port of ``sao_plane_jax``).
+              edge_flags=None, nf=None, halo=None, x0=0, w_frame=None):
+    """SAO for one plane (port of ``sao_plane_jax``), or for one column
+    band of it.
 
     plane: int32 [h, w]; type_map (0 off / 1 band / 2 edge), band_pos,
     eo_class: int32 [cty, ctx]; offs4: int32 [cty, ctx, 4]; ctb_log2: the
     CTB's log2 size in plane samples, or (log2 height, log2 width) where
     they differ (4:2:2 chroma).  edge_flags: optional int32 [cty, ctx] of
     ``ops.boundaries.SAO_*`` bits (restricted slice/tile borders); nf:
-    optional bool pixel mask of samples SAO never modifies (8.7.3)."""
+    optional bool pixel mask of samples SAO never modifies (8.7.3).  A
+    column band (``sharded``) passes the neighbours' columns next to it,
+    ``halo`` = (left, right), each [h, 1], its first column ``x0`` in the
+    plane and the plane's width ``w_frame``: sample validity is in plane
+    coordinates, the maps are the band's CTB columns."""
     lh, lw = (ctb_log2, ctb_log2) if isinstance(ctb_log2, int) \
         else ctb_log2
     h, w = plane.shape
+    w_frame = w if w_frame is None else w_frame
     maxv = (1 << bd) - 1
     dev = plane.device
     t = _upsample(type_map, lh, lw, h, w)
@@ -291,8 +298,9 @@ def sao_plane(plane, type_map, band_pos, offs4, eo_class, ctb_log2, bd,
     band_out = (plane + band_off).clamp(0, maxv)
     # ---- edge: all 4 classes, select, category-masked offsets ----
     yy = torch.arange(h, device=dev)[:, None]
-    xx = torch.arange(w, device=dev)[None, :]
-    pad = edge_pad(plane, 1, 1, 1, 1)
+    xx = torch.arange(w, device=dev)[None, :] + x0
+    pad = edge_pad(plane, 1, 1, 1, 1) if halo is None else edge_pad(
+        torch.cat([halo[0], plane, halo[1]], 1), 1, 1, 0, 0)
 
     def shifted(dy, dx):
         return pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
@@ -306,10 +314,10 @@ def sao_plane(plane, type_map, band_pos, offs4, eo_class, ctb_log2, bd,
         for c in range(4):
             off = off + torch.where(cat == c + 1, offs[..., c], 0)
         valid = ((yy + ay >= 0) & (yy + ay < h) & (xx + ax >= 0)
-                 & (xx + ax < w) & (yy + by >= 0) & (yy + by < h)
-                 & (xx + bx >= 0) & (xx + bx < w))
+                 & (xx + ax < w_frame) & (yy + by >= 0) & (yy + by < h)
+                 & (xx + bx >= 0) & (xx + bx < w_frame))
         if fl is not None:
-            valid = valid & ~_restricted(k, fl, lh, lw, h, w, dev)
+            valid = valid & ~_restricted(k, fl, lh, lw, h, xx, w_frame)
         res = torch.where(valid, (plane + off).clamp(0, maxv), plane)
         edge_out = torch.where(cls == k, res, edge_out)
     out = torch.where(t == 1, band_out,

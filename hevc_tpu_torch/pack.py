@@ -5,9 +5,10 @@ Port of ``hevc_tpu/tpu/pipeline.py:pack_frame_pipeline`` and
 buffers keep the JAX package's format — int32 ``meta``, int16 ``meta16``
 MC rows, int8 ``meta8`` QP/BS maps, uint8 ``avail``, int16 ``levels16``
 and the static ``spec`` tuple — so ``pipeline.frame_program`` takes what
-either pack produces.  It always packs the unaligned layout (``pallas``
-0), uploads the level pool dense, tags every MC row kind 3 and pads no
-row counts: the card needs no static shapes.
+either pack produces.  It ships the level pool as (index, value) pairs
+where the JAX pack does (``coo_pairs``).  It always packs the unaligned
+layout (``pallas`` 0), tags every MC row kind 3 and pads no row counts:
+the card needs no static shapes.
 
 The canvas layout (``region_offsets``, the ``PAD``/``TAIL`` margins, the
 ``DUMP`` sentinel, ``PAD_REF``) and ``PackedFrame``, the per-frame pack of
@@ -384,11 +385,101 @@ def saturate_mc_windows(mcrow, nm, sps):
     return arr, arr.shape[0]
 
 
+@dataclass
+class FilterInputs:
+    """What the in-loop filters of one picture read, picture-wide: the
+    single-device frame program's (through ``pack_frame``'s meta8) and the
+    banded decode's (``band._bundle_frame``, one column slice a band)."""
+    per_slice: bool               # several slices, or tiles without loop
+                                  # filtering across them
+    do_deblock: bool              # some slice deblocks
+    qp4: np.ndarray               # QpY per 4x4 [h4, w4]
+    bs_v: np.ndarray              # boundary strengths per 4x4, gated at
+    bs_h: np.ndarray              # slice and tile edges (None when no
+                                  # slice deblocks)
+    beta: object                  # beta / tc offsets: ints, or per-4x4
+    tc: object                    # [h4, w4] maps of each 4x4's slice
+    cb_qp_off: int
+    cr_qp_off: int
+    sao_flags: np.ndarray = None  # uint8 [ctb_h, ctb_w] SAO edge
+                                  # restrictions (``boundaries.SAO_*``)
+    no_filter: np.ndarray = None  # bool [h4, w4] PCM / transquant-bypass
+                                  # samples no filter modifies; None if none
+
+
+def filter_inputs(pic) -> FilterInputs:
+    """The filter inputs of a stage-A picture (multi-slice semantics:
+    reference hevc_filter.c's s->deblock[ctb] and filter_slice_edges)."""
+    sps, pps = pic.sps, pic.pps
+    dbp = getattr(pic, "deblock_params", None)
+    slice_params = getattr(pic, "slice_params", None) or []
+    nfmap = getattr(pic, "no_filter", None)
+    nf = np.ascontiguousarray(nfmap) if nfmap is not None and nfmap.any() \
+        else None
+    if len(slice_params) > 1 or (pps.tiles_enabled
+                                 and not pps.loop_filter_across_tiles):
+        cs = 1 << sps.log2_ctb_size
+        beta_c, tc_c, dis_c, lfa_c = slice_param_arrays(
+            pic.slice_idx, slice_params or [{}])
+        tiles_m = np.asarray(pps.tile_of_ctb) if pps.tiles_enabled \
+            else np.zeros_like(pic.slice_idx)
+        do_deblock = not (dis_c == 1).all()
+        if do_deblock:
+            pic.compute_bs()
+            gv, gh = gate_bs(pic.bs_v, pic.bs_h, pic.slice_idx, tiles_m,
+                             lfa_c, dis_c,
+                             bool(pps.loop_filter_across_tiles), cs)
+        else:
+            gv = gh = np.zeros((pic.h4, pic.w4), np.int8)
+        flags = sao_edge_flag_map(pic.slice_idx, tiles_m, lfa_c,
+                                  bool(pps.loop_filter_across_tiles),
+                                  bool(pps.tiles_enabled))
+        return FilterInputs(
+            True, do_deblock, pic.qp_y, gv, gh,
+            upsample4(beta_c, cs, pic.h4, pic.w4),
+            upsample4(tc_c, cs, pic.h4, pic.w4),
+            pps.cb_qp_offset, pps.cr_qp_offset, flags, nf)
+    if dbp is not None:
+        pic.compute_bs()
+        return FilterInputs(False, True, pic.qp_y, pic.bs_v, pic.bs_h,
+                            dbp["beta_offset"], dbp["tc_offset"],
+                            dbp["cb_qp_offset"], dbp["cr_qp_offset"],
+                            None, nf)
+    return FilterInputs(False, False, pic.qp_y, None, None, 0, 0, 0, 0,
+                        None, nf)
+
+
+# the sparse level upload of the JAX pack (``pack_frame_pipeline``): a pool
+# of at least this many coefficients, fewer than a third of them nonzero,
+# ships as (int32 index, int16 value) pairs, 6 bytes a nonzero against 2 a
+# coefficient
+COO_MIN = 1 << 16
+
+
+def coo_pairs(levels16):
+    """(idx int32, val int16) of the nonzero levels of an int16 pool, padded
+    to a power of two with the index ``levels16.size`` (dropped on the
+    device), where the JAX pack ships the pool so; else None."""
+    if levels16.size < COO_MIN:
+        return None
+    nz = np.nonzero(levels16)[0]
+    if nz.size * 3 >= levels16.size:
+        return None
+    coo_n = _pow2_at_least(max(int(nz.size), 1))
+    idx = np.full(coo_n, levels16.size, np.int32)
+    idx[:nz.size] = nz
+    val = np.zeros(coo_n, np.int16)
+    val[:nz.size] = levels16[nz]
+    return idx, val
+
+
 def pack_frame(pic):
     """Native records of one picture -> (meta, meta16, meta8, avail_u8,
     levels16, canvas0, spec).  ``canvas0`` is the canvas shape (the frame
     program starts from zeros), or an int16 host canvas holding the
-    picture's PCM samples."""
+    picture's PCM samples; ``levels16`` the int16 level pool, or its
+    (idx, val) pairs where ``coo_pairs`` ships it sparse (spec ``coo``:
+    (pairs, pool size), pairs 0 for a dense pool)."""
     sps = pic.sps
     reg, chh, cww = region_offsets(sps)
     with trace.span("pack.concat"):
@@ -531,59 +622,31 @@ def pack_frame(pic):
         sao_e = np.zeros(ct, np.int32)
     parts += [sao_t.reshape(-1), sao_b.reshape(-1), sao_e.reshape(-1),
               sao_o.reshape(-1)]
-    dbp = getattr(pic, "deblock_params", None)
-    slice_params = getattr(pic, "slice_params", None) or []
-    pps = pic.pps
-    per_slice = len(slice_params) > 1 or (
-        pps.tiles_enabled and not pps.loop_filter_across_tiles)
+    fi = filter_inputs(pic)
+    per_slice, do_deblock = fi.per_slice, fi.do_deblock
     if per_slice:
         # multi-slice filter semantics: gated BS, per-4x4 offset maps and
         # per-CTB SAO edge restrictions travel in meta8
-        cs = 1 << sps.log2_ctb_size
-        beta_c, tc_c, dis_c, lfa_c = slice_param_arrays(
-            pic.slice_idx, slice_params or [{}])
-        tiles_m = np.asarray(pps.tile_of_ctb) if pps.tiles_enabled \
-            else np.zeros_like(pic.slice_idx)
-        do_deblock = not (dis_c == 1).all()
-        if do_deblock:
-            pic.compute_bs()
-            gv, gh = gate_bs(pic.bs_v, pic.bs_h, pic.slice_idx, tiles_m,
-                             lfa_c, dis_c,
-                             bool(pps.loop_filter_across_tiles), cs)
-        else:
-            gv = gh = np.zeros((pic.h4, pic.w4), np.int8)
-        flags = sao_edge_flag_map(pic.slice_idx, tiles_m, lfa_c,
-                                  bool(pps.loop_filter_across_tiles),
-                                  bool(pps.tiles_enabled))
-        parts8 = [pic.qp_y.astype(np.int8).reshape(-1),
-                  gv.astype(np.int8).reshape(-1),
-                  gh.astype(np.int8).reshape(-1),
-                  upsample4(beta_c, cs, pic.h4, pic.w4)
-                  .astype(np.int8).reshape(-1),
-                  upsample4(tc_c, cs, pic.h4, pic.w4)
-                  .astype(np.int8).reshape(-1),
-                  flags.view(np.int8).reshape(-1)]
-        parts.append(np.array([0, 0, pps.cb_qp_offset, pps.cr_qp_offset],
-                              np.int32))
-    elif dbp is not None:
-        do_deblock = True
-        pic.compute_bs()
-        parts8 = [pic.qp_y.astype(np.int8).reshape(-1),
-                  pic.bs_v.astype(np.int8).reshape(-1),
-                  pic.bs_h.astype(np.int8).reshape(-1)]
-        parts.append(np.array([dbp["beta_offset"], dbp["tc_offset"],
-                               dbp["cb_qp_offset"], dbp["cr_qp_offset"]],
+        parts8 = [fi.qp4.astype(np.int8).reshape(-1),
+                  fi.bs_v.astype(np.int8).reshape(-1),
+                  fi.bs_h.astype(np.int8).reshape(-1),
+                  fi.beta.astype(np.int8).reshape(-1),
+                  fi.tc.astype(np.int8).reshape(-1),
+                  fi.sao_flags.view(np.int8).reshape(-1)]
+        parts.append(np.array([0, 0, fi.cb_qp_off, fi.cr_qp_off], np.int32))
+    elif do_deblock:
+        parts8 = [fi.qp4.astype(np.int8).reshape(-1),
+                  fi.bs_v.astype(np.int8).reshape(-1),
+                  fi.bs_h.astype(np.int8).reshape(-1)]
+        parts.append(np.array([fi.beta, fi.tc, fi.cb_qp_off, fi.cr_qp_off],
                               np.int32))
     else:
-        do_deblock = False
         parts8 = [np.zeros(pic.h4 * pic.w4 * 3, np.int8)]
         parts.append(np.zeros(4, np.int32))
     # PCM (pcm_loop_filter_disabled) / transquant-bypass exemption, per 4x4
-    nfmap = getattr(pic, "no_filter", None)
-    nf_any = bool(nfmap is not None and nfmap.any())
+    nf_any = fi.no_filter is not None
     if nf_any:
-        parts8.append(np.ascontiguousarray(nfmap).astype(np.int8)
-                      .reshape(-1))
+        parts8.append(fi.no_filter.astype(np.int8).reshape(-1))
 
     with trace.span("pack.cat"):
         meta = np.concatenate(parts).astype(np.int32, copy=False)
@@ -593,6 +656,12 @@ def pack_frame(pic):
         avail_u8 = np.concatenate(avail_parts) if any(B) \
             else np.zeros(1, np.uint8)
         levels16 = np.concatenate(lvl_parts)
+        total = levels16.size
+        pairs = coo_pairs(levels16)
+        coo_n = 0
+        if pairs is not None:
+            levels16 = pairs
+            coo_n = pairs[0].size
 
     do_sao = bool(getattr(pic, "has_sao", False)) \
         or bool(getattr(pic, "sao_map", None))
@@ -614,6 +683,6 @@ def pack_frame(pic):
         ("pallas", 0),
         ("nf", nf_any),
         ("mono", sps.chroma_format_idc == 0),
-        ("coo", (0, sum(len(v) for v in lvl_parts))),
+        ("coo", (coo_n, total)),
     )
     return meta, meta16, meta8, avail_u8, levels16, canvas0, spec

@@ -46,14 +46,20 @@ def _check_spec(S):
     for key, why in _UNPORTED:
         if S.get(key):
             raise NotImplementedError(f"hevc_tpu_torch: {why}")
-    if S["coo"][0]:
-        raise NotImplementedError(
-            "hevc_tpu_torch: sparse (COO) level upload is not ported "
-            "(ROADMAP Queue 1 item 4)")
 
 
 def _upload(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def scatter_levels(idx, val, total):
+    """The dense int16 level pool of ``total`` entries from its (idx, val)
+    pairs on their device (``pack.coo_pairs``).  The padding pairs carry
+    the index ``total``: they land in one spare entry that is cut off, as
+    torch drops no out-of-range index (JAX's ``mode="drop"`` does)."""
+    dense = torch.zeros(total + 1, dtype=torch.int16, device=idx.device)
+    dense[idx.long()] = val
+    return dense[:total]
 
 
 def host_views(meta, meta16, S):
@@ -89,7 +95,8 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     """One frame's stage B on ``device`` from the packed host buffers.
 
     meta/meta16/meta8/avail_u8/levels16: NumPy buffers from a pack (this
-    package's or the JAX package's unaligned one); scale_bank: per class
+    package's or the JAX package's unaligned one), levels16 the (idx, val)
+    pairs where the spec's ``coo`` says so; scale_bank: per class
     [7, s, s] int32 (NumPy or tensors); canvas0: the canvas shape, or a
     host canvas (PCM samples); refs_*: PAD_REF-padded int32 reference
     planes on ``device``.  Returns (fused output buffer, pad_y, pad_cb,
@@ -114,7 +121,13 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     meta_d = _upload(meta, device)
     meta8_d = _upload(meta8, device)
     avail_d = _upload(avail_u8, device)
-    levels_d = _upload(levels16, device)
+    coo_n, total = S["coo"]
+    if coo_n:
+        # sparse upload: the dense pool is rebuilt on the device
+        levels_d = scatter_levels(_upload(levels16[0], device),
+                                  _upload(levels16[1], device), total)
+    else:
+        levels_d = _upload(levels16, device)
 
     pos = 0
 

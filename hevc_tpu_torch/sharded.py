@@ -9,9 +9,12 @@ add (``resid_add_kernel``), the intra wavefront, deblocking and SAO — and
 neighbours exchange halo columns:
 
 - deblocking: 16 luma columns of the unfiltered plane (``16 // sub_w``
-  chroma, ``16 // 4`` of the 4x4 QP and boundary-strength maps); the
-  horizontal edges then filter on the band's interior alone;
-- SAO: 1 column of the deblocked planes, validity in frame coordinates;
+  chroma, ``16 // 4`` of the per-4x4 maps: QP, boundary strength, and
+  where the picture has them the slices' beta/tc offsets and the PCM/TQB
+  exemption); the horizontal edges then filter on the band's interior
+  alone;
+- SAO: 1 column of the deblocked planes, validity and the slice/tile edge
+  restrictions in frame coordinates;
 - reference windows: ``halo_l`` / ``halo_c`` columns of each decoded band,
   so that the next pictures' MC reads only its own band's window.
 
@@ -37,7 +40,7 @@ import torch.distributed as dist
 
 from . import mc_cuda
 from .band import mc_rows
-from .filters import _EO, _chroma_pass, _luma_pass, _upsample
+from .filters import _chroma_pass, _keep, _luma_pass, _t, sao_plane
 from .intra import chunk_counts, reconstruct_wavefront
 from .pack import PAD_REF
 from .pipeline import _upload
@@ -121,97 +124,99 @@ def _exchange(layout, fields):
     return out
 
 
-def _sao_local(ext, tmap, pos, offs4, cls, ctb_log2, bd, x0, w_global):
-    """SAO over one column band given a 1-column halo (``ext`` int32 [h,
-    wb + 2]); the maps are the band's per-CTB parameters and x0 the band's
-    first column in the frame: sample validity is in frame coordinates."""
-    h, wb = ext.shape[0], ext.shape[1] - 2
-    maxv = (1 << bd) - 1
-    dev = ext.device
-    plane = ext[:, 1:-1]
-    t = _upsample(tmap, ctb_log2, ctb_log2, h, wb)
-    posm = _upsample(pos, ctb_log2, ctb_log2, h, wb)
-    offs = _upsample(offs4, ctb_log2, ctb_log2, h, wb)
-    clsm = _upsample(cls, ctb_log2, ctb_log2, h, wb)
-    band = plane >> (bd - 5)
-    band_off = torch.zeros_like(plane)
-    for k in range(4):
-        band_off = band_off + torch.where(band == ((posm + k) & 31),
-                                          offs[..., k], 0)
-    band_out = (plane + band_off).clamp(0, maxv)
-    yy = torch.arange(h, device=dev)[:, None]
-    xx = torch.arange(wb, device=dev)[None, :] + x0
-    padv = edge_pad(ext, 1, 1, 0, 0)
-
-    def shifted(dy, dx):
-        return padv[1 + dy:1 + dy + h, 1 + dx:1 + dx + wb]
-
-    edge_out = plane
-    for k, (ay, ax, by, bx) in enumerate(_EO):
-        idx = 2 + torch.sign(plane - shifted(ay, ax)) \
-            + torch.sign(plane - shifted(by, bx))
-        cat = torch.where(idx == 2, 0, torch.where(idx < 2, idx + 1, idx))
-        off = torch.zeros_like(plane)
-        for c in range(4):
-            off = off + torch.where(cat == c + 1, offs[..., c], 0)
-        valid = ((yy + ay >= 0) & (yy + ay < h)
-                 & (xx + ax >= 0) & (xx + ax < w_global)
-                 & (yy + by >= 0) & (yy + by < h)
-                 & (xx + bx >= 0) & (xx + bx < w_global))
-        res = torch.where(valid, (plane + off).clamp(0, maxv), plane)
-        edge_out = torch.where(clsm == k, res, edge_out)
-    return torch.where(t == 1, band_out, torch.where(t == 2, edge_out, plane))
-
-
 def _cat(lr, x):
     return torch.cat([lr[0], x, lr[1]], 1)
 
 
-def _filters(layout, ys, cbs, crs, qp4s, bvs, bhs, dboff, sao, *, bd,
-             ctb_log2, sub_w, sub_h, do_deblock, do_sao):
+def _nf_masks(nf4, sub_w, sub_h):
+    """A per-4x4 PCM/TQB exemption map -> its luma and chroma pixel masks
+    (as ``pipeline.frame_program`` derives them)."""
+    if nf4 is None:
+        return None, None
+    nf_l = (nf4 != 0).repeat_interleave(4, 0).repeat_interleave(4, 1)
+    return nf_l, nf_l[::sub_h, ::sub_w]
+
+
+def _deblock_band(i, dev, ex, ys, cbs, crs, maps, scal, bd, sub_w, sub_h,
+                  mono):
+    """Deblocking of local band i: each plane's vertical edges on its halo
+    extension (``ex``: the exchanged columns of the planes and the per-4x4
+    maps), then its horizontal edges on the band alone; exempt samples
+    restored after each pass, as ``filters.deblock`` does."""
+    hl = 16
+    hc = hl // sub_w
+    tables = tables_from_reference(dev)
+    qpc_tab = tables["qpc"] if sub_w == sub_h == 2 else None
+    band = {k: m[i] for k, m in maps.items()}
+    ext = {k: _cat(ex[k][i], m) for k, m in band.items() if k in ex}
+    beta_e, tc_e = (ext.get(k, scal[k]) for k in ("beta", "tc"))
+    beta_b, tc_b = (band.get(k, scal[k]) for k in ("beta", "tc"))
+    nf_e = _nf_masks(ext.get("nf"), sub_w, sub_h)
+    nf_b = _nf_masks(band.get("nf"), sub_w, sub_h)
+    qt, bt = band["qp4"].t(), band["bs_h"].t()
+    y_in, y_e = ys[i], _cat(ex["y"][i], ys[i])
+    y = _keep(_luma_pass(y_e, ext["qp4"], ext["bs_v"], beta_e, tc_e, bd,
+                         tables), y_e, nf_e[0])[:, hl:-hl]
+    y = _luma_pass(y.t(), qt, bt, _t(beta_b), _t(tc_b), bd, tables).t()
+    ys[i] = _keep(y, y_in, nf_b[0]).contiguous()
+    if mono:
+        return
+    for name, cs, off in (("cb", cbs, scal["cb"]), ("cr", crs, scal["cr"])):
+        c_in, c_e = cs[i], _cat(ex[name][i], cs[i])
+        c = _keep(_chroma_pass(c_e, ext["qp4"], ext["bs_v"], tc_e, off, bd,
+                               sub_h, sub_w, qpc_tab, tables),
+                  c_e, nf_e[1])[:, hc:-hc]
+        c = _chroma_pass(c.t(), qt, bt, _t(tc_b), off, bd, sub_w, sub_h,
+                         qpc_tab, tables).t()
+        cs[i] = _keep(c, c_in, nf_b[1]).contiguous()
+
+
+def _filters(layout, ys, cbs, crs, maps, scal, sao, *, bd, ctb_log2, sub_w,
+             sub_h, do_deblock, do_sao, mono=False):
     """Deblocking + SAO of the local bands (lists of int32 tensors, one per
     band, each on its device): vertical edges on a 16-luma-column halo of
     the unfiltered planes, horizontal edges on the band alone, then SAO on
-    a 1-column halo of the deblocked planes.  sao: (type, band_pos, offs4,
+    a 1-column halo of the deblocked planes.
+
+    maps: per-4x4 maps, each a list over the bands: ``qp4``, ``bs_v``,
+    ``bs_h`` (slice- and tile-gated), and where the picture has them the
+    offset maps ``beta`` / ``tc`` and the PCM/TQB exemption ``nf``; scal:
+    ``beta`` / ``tc`` (picture-wide offsets, where there are no maps),
+    ``cb`` / ``cr`` (the chroma QP offsets) and ``sao_flags`` (per band the
+    per-CTB SAO edge restrictions, or None).  sao: (type, band_pos, offs4,
     eo_class), each a list over the bands of per-plane maps [3, cty,
-    band's ctx (, 4)].  Returns the three lists of filtered planes."""
+    band's ctx (, 4)].  4:0:0 (``mono``) filters the luma plane alone.
+    Returns the three lists of filtered planes."""
     ys, cbs, crs = list(ys), list(cbs), list(crs)
+    planes = [ys] if mono else [ys, cbs, crs]
     if do_deblock:
-        beta_off, tc_off, cb_qp_off, cr_qp_off = dboff
         hl = 16                   # luma halo (8-grid aligned)
-        hm, hc = hl // 4, hl // sub_w
-        ex = _exchange(layout, [(ys, hl), (qp4s, hm), (bvs, hm), (cbs, hc),
-                                (crs, hc)])
+        fields = {"y": (ys, hl)}
+        fields.update((k, (maps[k], hl // 4)) for k in maps if k != "bs_h")
+        if not mono:
+            fields.update(cb=(cbs, hl // sub_w), cr=(crs, hl // sub_w))
+        ex = dict(zip(fields, _exchange(layout, list(fields.values()))))
         for i, dev in enumerate(layout.devices):
-            tables = tables_from_reference(dev)
-            qpc_tab = tables["qpc"] if sub_w == sub_h == 2 else None
-            eqp, ebv = _cat(ex[1][i], qp4s[i]), _cat(ex[2][i], bvs[i])
-            ey = _luma_pass(_cat(ex[0][i], ys[i]), eqp, ebv, beta_off,
-                            tc_off, bd, tables)[:, hl:-hl]
-            ecs = [_chroma_pass(_cat(ex[j][i], c), eqp, ebv, tc_off, off,
-                                bd, sub_h, sub_w, qpc_tab,
-                                tables)[:, hc:-hc]
-                   for j, c, off in ((3, cbs[i], cb_qp_off),
-                                     (4, crs[i], cr_qp_off))]
-            # horizontal edges: column-independent, the band alone
-            qt, bt = qp4s[i].t(), bhs[i].t()
-            ys[i] = _luma_pass(ey.t(), qt, bt, beta_off, tc_off, bd,
-                               tables).t().contiguous()
-            cbs[i], crs[i] = (
-                _chroma_pass(c.t(), qt, bt, tc_off, off, bd, sub_w, sub_h,
-                             qpc_tab, tables).t().contiguous()
-                for c, off in ((ecs[0], cb_qp_off), (ecs[1], cr_qp_off)))
+            _deblock_band(i, dev, ex, ys, cbs, crs, maps, scal, bd, sub_w,
+                          sub_h, mono)
     if do_sao:
-        planes = [ys, cbs, crs]
         ex = _exchange(layout, [(ps, 1) for ps in planes])
         for p, ps in enumerate(planes):
-            lg = ctb_log2 - (0 if p == 0 else sub_w.bit_length() - 1)
+            sub = (1, 1) if p == 0 else (sub_h, sub_w)
+            lg = (ctb_log2 - sub[0].bit_length() + 1,
+                  ctb_log2 - sub[1].bit_length() + 1)
             for i, x in enumerate(ps):
                 wb = x.shape[1]
-                ps[i] = _sao_local(
-                    _cat(ex[p][i], x), sao[0][i][p], sao[1][i][p],
-                    sao[2][i][p], sao[3][i][p], lg, bd,
-                    (layout.first + i) * wb, wb * layout.n)
+                nf = _nf_masks(maps["nf"][i], sub_w, sub_h)[min(p, 1)] \
+                    if "nf" in maps else None
+                ps[i] = sao_plane(
+                    x, sao[0][i][p], sao[1][i][p], sao[2][i][p],
+                    sao[3][i][p], lg, bd,
+                    edge_flags=None if scal["sao_flags"] is None
+                    else scal["sao_flags"][i],
+                    nf=None if nf is None else nf[:x.shape[0], :wb],
+                    halo=ex[p][i], x0=(layout.first + i) * wb,
+                    w_frame=wb * layout.n)
     return ys, cbs, crs
 
 
@@ -235,28 +240,49 @@ def _band_sao(layout, sao, ctb_cols):
              for k, dev in zip(layout.bands, layout.devices)] for m in sao]
 
 
+def _filter_maps(layout, band_w, ctb_log2, qp4, bs_v, bs_h, beta, tc,
+                 cb_qp_off, cr_qp_off, sao_flags, no_filter):
+    """The frame's filter inputs -> (maps, scal) of ``_filters``, each map
+    cut into the local bands' columns on their devices."""
+    quarter = band_w // 4
+    named = dict(qp4=qp4, bs_v=bs_v, bs_h=bs_h, nf=no_filter)
+    if np.ndim(beta) == 2:
+        named.update(beta=beta, tc=tc)
+    maps = {k: _band_maps(layout, a, quarter) for k, a in named.items()
+            if a is not None}
+    scal = dict(beta=beta, tc=tc, cb=cb_qp_off, cr=cr_qp_off,
+                sao_flags=None if sao_flags is None else _band_maps(
+                    layout, sao_flags, band_w >> ctb_log2))
+    return maps, scal
+
+
 def filter_frame_sharded(layout, y, cb, cr, qp4, bs_v, bs_h, beta_off,
                          tc_off, cb_qp_off, cr_qp_off, sao_type,
                          sao_band_pos, sao_offs4, sao_eo_class, *,
                          bit_depth, ctb_log2, sub_w=2, sub_h=2,
-                         do_deblock=True, do_sao=True):
+                         do_deblock=True, do_sao=True, edge_flags=None,
+                         no_filter=None):
     """Deblocking + SAO of one frame in column bands over ``layout``.
 
     Planes are int32 NumPy [h, w] (luma) and subsampled (chroma); qp4 /
-    bs_* the per-4x4 maps of the frame; sao_* 3 per-plane per-CTB maps each
-    (``recon.pack_sao_params``).  Each band must be a whole number of CTBs.
-    Returns (y, cb, cr): the local bands' columns of the filtered planes,
-    on the first local band's device."""
+    bs_* the per-4x4 maps of the frame; beta_off / tc_off ints, or per-4x4
+    maps of each 4x4's slice offsets; sao_* 3 per-plane per-CTB maps each
+    (``recon.pack_sao_params``); edge_flags: optional per-CTB SAO edge
+    restrictions (``ops.boundaries.SAO_*`` bits); no_filter: optional
+    per-4x4 bool map of PCM/TQB samples no filter modifies.  Each band must
+    be a whole number of CTBs.  Returns (y, cb, cr): the local bands'
+    columns of the filtered planes, on the first local band's device."""
     w = np.shape(y)[1]
     if w % (layout.n << ctb_log2):
         raise ValueError(f"band width {w}/{layout.n} is not a multiple of "
                          "the CTB size")
     bw = w // layout.n
+    maps, scal = _filter_maps(layout, bw, ctb_log2, qp4, bs_v, bs_h,
+                              beta_off, tc_off, cb_qp_off, cr_qp_off,
+                              edge_flags, no_filter)
     ys, cbs, crs = _filters(
         layout, _band_maps(layout, y, bw), _band_maps(layout, cb, bw // sub_w),
-        _band_maps(layout, cr, bw // sub_w), _band_maps(layout, qp4, bw // 4),
-        _band_maps(layout, bs_v, bw // 4), _band_maps(layout, bs_h, bw // 4),
-        (beta_off, tc_off, cb_qp_off, cr_qp_off),
+        _band_maps(layout, cr, bw // sub_w), maps, scal,
         _band_sao(layout, (sao_type, sao_band_pos, sao_offs4, sao_eo_class),
                   bw >> ctb_log2),
         bd=bit_depth, ctb_log2=ctb_log2, sub_w=sub_w, sub_h=sub_h,
@@ -348,14 +374,21 @@ def band_step(layout, fb, halo_l, halo_c, dpb):
                                 + [w[2] for w in wins]))
         recon.append(band_recon(pf, refs, bd, dev))
 
-    quarter = band_w // 4
-    maps = [None if a is None else _band_maps(layout, a, quarter)
-            for a in (fb["qp4"], fb["bs_v"], fb["bs_h"])]
+    fi, mono = fb["filters"], fb["mono"]
+    maps, scal = _filter_maps(layout, band_w, fb["ctb_log2"], fi.qp4,
+                              fi.bs_v, fi.bs_h, fi.beta, fi.tc, fi.cb_qp_off,
+                              fi.cr_qp_off, fi.sao_flags, fi.no_filter)
     sao = _band_sao(layout, fb["sao"], band_w >> fb["ctb_log2"])
     ys, cbs, crs = _filters(
-        layout, *zip(*recon), *maps, fb["dboff"], sao, bd=bd,
+        layout, *zip(*recon), maps, scal, sao, bd=bd,
         ctb_log2=fb["ctb_log2"], sub_w=sub_w, sub_h=fb["sub_h"],
-        do_deblock=fb["do_deblock"], do_sao=fb["do_sao"])
+        do_deblock=fi.do_deblock, do_sao=fb["do_sao"], mono=mono)
+    if mono:
+        # 4:0:0: the luma windows stand in for the chroma ones, which no
+        # MC row reads (as in the frame program's device DPB)
+        wins = _ref_windows(layout, (ys,), (halo_l,))
+        dpb[fb["poc"]] = [w * 3 for w in wins]
+        return [(y,) for y in ys]
     dpb[fb["poc"]] = _ref_windows(layout, (ys, cbs, crs), halos)
     return list(zip(ys, cbs, crs))
 
@@ -376,10 +409,10 @@ def decode_gop_banded(layout, frames, halo_l=32, halo_c=16, dpb=None):
 
 
 def stitch(bands):
-    """[(y, cb, cr)] of adjacent bands -> the three planes of their columns
-    as NumPy arrays."""
+    """[(y, cb, cr)] (4:0:0: [(y,)]) of adjacent bands -> the planes of
+    their columns as NumPy arrays."""
     return [np.concatenate([b[p].cpu().numpy() for b in bands], 1)
-            for p in range(3)]
+            for p in range(len(bands[0]))]
 
 
 def _rewiden_dpb(layout, dpb, old_halo, new_halo):

@@ -17,10 +17,15 @@ decode, bit for bit (tolerance 0), on the CPU.
 - the device DPB: it keeps only what the RPS keeps, and a reference that
   is not in it is an error naming the POC; the streaming stage A stops
   when its consumer does;
+- a tile stream without loop filtering across tiles decodes equal to the
+  sequential decode, where the JAX banded decode differs from it;
 - the refusals: tile columns that are not the bands (no tiles; 2 tile
-  columns in 4 bands), a tile stream without cross-tile filtering (on
-  which the JAX band path differs from the sequential decode), 4:2:2,
-  several slices, and a halo narrower than the MV bound.
+  columns in 4 bands), the pictures the JAX banded decode raises on too
+  (4:2:2 with deblocking or SAO, 4:0:0 with references or with both
+  deblocking and SAO: the JAX error is named, and raised), and a halo
+  narrower than the MV bound.
+The other stream kinds of the banded decode (several slices, PCM, 4:0:0
+and 4:2:2) are in tests/test_torch_band_formats.py.
 """
 import threading
 
@@ -335,15 +340,24 @@ def test_streaming_banded_decode_with_the_halo_widened(monkeypatch):
 
 
 def test_refuses_tiles_without_cross_tile_filtering():
-    """With loop filtering off across tiles the reference's band filters
-    (no tile edge flags in ``_sao_local``, ungated boundary strengths)
-    differ from the sequential decode; the port refuses such streams."""
+    """Named for what the banded decode once did with such a stream: it
+    refused it.  It decodes it now: with loop filtering off across tiles
+    the band filters take the boundary strengths gated at the tile edges
+    and the SAO edge restrictions, and every picture equals the sequential
+    decode.  The JAX package's band filters (ungated strengths, no edge
+    flags in its ``_sao_local``) differ from it there."""
     n_bands = 4
     stream = _encode(dict(width=128, height=96, gop="ipp", deblocking=True,
                           sao=True, search_range=3), n_bands, 2,
                      lf_across_tiles=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        B.prepare_gop_banded(stream, n_bands)
+    frames, ref, (hl, hc) = B.prepare_gop_banded(stream, n_bands)
+    assert all(f["md5_ok"] for f in frames)
+    assert all(f["filters"].per_slice for f in frames)
+    pipeline.host_refs["count"] = 0
+    outs = decode_gop_banded(BandLayout(["cpu"] * n_bands), frames, hl, hc)
+    assert pipeline.host_refs["count"] == 0
+    for i, (out, want) in enumerate(zip(outs, ref)):
+        _assert_planes(stitch(out), want, f"picture {i} vs sequential")
     jframes, jref, (hl, hc) = JB.prepare_gop_banded(stream, n_bands)
     jouts = jax_decode_gop_banded(_mesh(n_bands), jframes, halo_l=hl,
                                   halo_c=hc)
@@ -351,15 +365,33 @@ def test_refuses_tiles_without_cross_tile_filtering():
                for out, want in zip(jouts, jref) for g, w in zip(out, want))
 
 
-@pytest.mark.parametrize("extra", [
-    dict(chroma_format_idc=2, bit_depth=10),   # 4:2:2
-    dict(slices=4),                            # a slice per tile
-], ids=["422", "slices"])
-def test_refuses_what_the_band_filters_do_not_do(extra):
-    stream = _encode(dict(width=128, height=64, gop="ipp", deblocking=True,
-                          search_range=2), 4, 2, **extra)
-    with pytest.raises(NotImplementedError, match="item 8"):
+# the pictures both banded decodes refuse: (encoder settings, the JAX
+# error's type, where the port's message says the JAX decode raises)
+REFUSED = {
+    "422": (dict(chroma_format_idc=2, bit_depth=10, deblocking=True),
+            TypeError, "hevc_tpu/tpu/filters.py:107"),
+    "422_sao": (dict(chroma_format_idc=2, bit_depth=10, sao=True),
+                TypeError, "hevc_tpu/tpu/sharded.py:72"),
+    "400_inter": (dict(chroma_format_idc=0, deblocking=True), IndexError,
+                  "hevc_tpu/tpu/pack.py:274"),
+    "400_deblock_sao": (dict(chroma_format_idc=0, gop="all_intra",
+                             deblocking=True, sao=True),
+                        TypeError, "hevc_tpu/tpu/sharded.py:72"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refuses_what_the_band_filters_do_not_do(name):
+    """The pictures the JAX banded decode raises on: the port refuses them
+    naming the JAX error, which the JAX decode raises."""
+    extra, jax_error, where = REFUSED[name]
+    stream = _encode(dict(width=128, height=64, gop="ipp", search_range=2)
+                     | extra, 4, 2)
+    with pytest.raises(NotImplementedError, match=where):
         B.prepare_gop_banded(stream, 4)
+    with pytest.raises(jax_error):
+        jframes, _jref, (hl, hc) = JB.prepare_gop_banded(stream, 4)
+        jax_decode_gop_banded(_mesh(4), jframes, halo_l=hl, halo_c=hc)
 
 
 def test_a_halo_narrower_than_the_mv_bound_raises():

@@ -262,6 +262,40 @@ def test_mc_and_resid_work_match_a_numpy_recount(tiny):
     assert resid_work(fields, pools) == (want_b, want_ops) and want_b > 0
 
 
+def test_stage_b_work_counts_a_coo_upload(tmp_path):
+    """A P picture whose level pool ships as (idx, val) pairs (a smooth
+    256x192 picture): ``stage_b_work``'s upload counts the pairs (6 bytes
+    each) and the scatter's write of the dense int16 pool, not the dense
+    upload; the residual stage reads the dense pool.  NumPy recount."""
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=256, height=192, qp=30, gop="ipp", deblocking=True, sao=True,
+        log2_ctb_size=5, log2_cu_size=5, search_range=2, seed=1))
+    path = tmp_path / "coo.265"
+    path.write_bytes(b"".join(enc.encode_frame(synth_frame(
+        "gradient", 256, 192, t, seed=3)) for t in range(2)))
+    args, _want = B.capture_frame_program(path.read_bytes(), CPU)
+    meta, meta16, meta8, avail, levels = args[:5]
+    S = dict(args[10])
+    coo_n, total = S["coo"]
+    assert coo_n > 0 and S["n_refs"], S["coo"]
+    idx, val = levels
+    sizes = [4 << c for c in range(4)]
+    assert total == sum(n * s * s for n, s in zip(S["nlv"], sizes))
+    _s, rmeta, _f, groups = pipeline.host_views(meta, meta16, S)
+    rows = mc_table(groups, args[6] if isinstance(args[6], tuple)
+                    else args[6].shape).rows
+    work = stage_b_work(args)
+    assert work["upload"][0] == (meta.nbytes + meta8.nbytes + avail.nbytes
+                                 + idx.nbytes + val.nbytes + 2 * total
+                                 + rows.nbytes)
+    assert idx.nbytes + val.nbytes == 6 * coo_n < 2 * total
+    pool_px = sum((n + 1) * s * s for n, s in zip(S["nlv"], sizes))
+    assert work["residuals"][0] == 2 * total + 36 * sum(S["nlv"]) \
+        + 4 * pool_px
+
+
 def _plan_raising(n):
     def hook(pic, plan, dpb):
         hook.calls += 1

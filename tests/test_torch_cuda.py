@@ -2,8 +2,9 @@
 versions on the card, bit for bit, on the parametrisation of
 tests/test_mc_pallas.py plus padding rows, and one launch each for a
 picture's mixed MC groups and all four residual classes; whole streams,
-SHVC, the CABAC and probe kernels; the banded decode, the frame axis and
-the banded decode across processes over NCCL on every card.  Needs a card
+SHVC, the CABAC and probe kernels; the banded decode (a multi-slice PCM
+stream among them), the frame axis and the banded decode across processes
+over NCCL on every card; the sparse (COO) level upload.  Needs a card
 (marker `cuda`); skips without one.  This file imports only the port (no
 JAX, no hevc_tpu), so it runs on a machine that has only torch:
 python -m pytest tests/test_torch_cuda.py
@@ -642,6 +643,72 @@ def test_banded_2048x1088_eight_bands_on_card(card):
     """tests/test_band_pipeline.py's 1080p-class case: 2048x1088 in eight
     bands of 256 columns, QP 34."""
     _banded_on_cards(_tile_stream(2048, 1088, 8, 3, "gradient", 34), 8)
+
+
+@pytest.mark.cuda
+def test_banded_multislice_1080p_on_card(card):
+    """The smoke's formats stream A in 2 bands, one a tile column: 1920x1080,
+    4 slices over 2x2 tiles with their own filter offsets (one without
+    deblocking, one without loop filtering across its edges), no loop
+    filtering across tiles, PCM exempt from the filters; I P P."""
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=1920, height=1080, qp=30, gop="ipp", deblocking=True,
+        sao=True, search_range=3, log2_ctb_size=6, log2_cu_size=5, seed=1,
+        tiles=(2, 2), slices=4, lf_across_tiles=False,
+        slice_filter_params=(dict(beta_offset=2, tc_offset=-2),
+                             dict(disable=True), dict(lf_across=False),
+                             dict(beta_offset=-4, tc_offset=4)),
+        pcm=0.05, pcm_loop_filter_disabled=True))
+    data = b"".join(enc.encode_frame(synth_frame("gradient", 1920, 1080, t,
+                                                 seed=4)) for t in range(3))
+    _banded_on_cards(data, 2)
+
+
+@pytest.mark.cuda
+def test_coo_picture_on_card(card):
+    """A 256x192 smooth IPP pair whose level pools ship as (idx, val)
+    pairs: ``TorchDecoder`` on the card with every MD5 correct, and each
+    picture's frame program on the pairs == on its dense pool."""
+    from hevc_tpu_torch import pipeline
+    from hevc_tpu_torch.decoder import TorchDecoder
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=256, height=192, qp=30, gop="ipp", deblocking=True, sao=True,
+        log2_ctb_size=5, log2_cu_size=5, search_range=2, seed=1))
+    data = b"".join(enc.encode_frame(synth_frame("gradient", 256, 192, t,
+                                                 seed=3)) for t in range(2))
+    calls = []
+    orig = pipeline.frame_program
+
+    def program(*args):
+        out = orig(*args)
+        refs = tuple([r.clone() for r in args[i]] for i in (7, 8, 9))
+        calls.append((args[:7] + refs + args[10:], out))
+        return out
+
+    pipeline.frame_program = program
+    try:
+        frames = TorchDecoder(check_md5=True, device=card).decode_bytes(data)
+    finally:
+        pipeline.frame_program = orig
+    assert [f.md5_ok for f in frames] == [True, True]
+    assert len(calls) == 2
+    for args, out in calls:
+        spec = dict(args[10])
+        coo_n, total = spec["coo"]
+        assert coo_n > 0
+        idx, val = args[4]
+        pool = np.zeros(total, np.int16)
+        keep = idx < total
+        pool[idx[keep]] = val[keep]
+        dense_spec = tuple((k, (0, total) if k == "coo" else v)
+                           for k, v in args[10])
+        dense = orig(*args[:4], pool, *args[5:10], dense_spec, card)
+        for a, b in zip(out, dense):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,13 @@
   and checks them against the same columns of the sequential decode (the
   counterpart of tests/test_distributed.py's banded decode);
 - the same with 3 ranks x 1 band on a stream given as a file
-  (``--stream``), so that the interior rank exchanges with two ranks.
+  (``--stream``), so that the interior rank exchanges with two ranks;
+- 2 ranks x 1 band of a stream with two slices a band, per-slice filter
+  offsets, no loop filtering across tiles or one slice's edges, and PCM
+  exempt from the filters: the offset, exemption and SAO restriction maps
+  cross the ranks with the planes;
+- with no ``--backend`` and no card the worker refuses to start: it never
+  falls back to the CPU.
 
 A worker that fails or outlives its time limit fails the test."""
 import os
@@ -18,6 +24,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -121,3 +128,39 @@ def test_three_process_banded_decode_of_a_given_stream(tmp_path):
          for rank in range(3)], timeout=300)
     for rank, out in enumerate(outs):
         assert f"worker {rank} OK decode_s=" in out
+
+
+def test_two_process_banded_decode_of_a_multislice_pcm_stream(tmp_path):
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=128, height=96, qp=30, log2_ctb_size=5, log2_cu_size=4,
+        gop="ipp", tiles=(2, 2), slices=4, lf_across_tiles=False,
+        slice_filter_params=(dict(beta_offset=2, tc_offset=-2),
+                             dict(lf_across=False),
+                             dict(beta_offset=-4, tc_offset=4),
+                             dict(disable=True)),
+        pcm=0.2, pcm_loop_filter_disabled=True, deblocking=True, sao=True,
+        seed=2, search_range=3))
+    path = tmp_path / "slices.265"
+    path.write_bytes(b"".join(enc.encode_frame(synth_frame(
+        "noise", 128, 96, t, seed=4)) for t in range(3)))
+    port = _free_port()
+    outs = _run_workers(
+        [[sys.executable, "-m", "hevc_tpu_torch.dist_worker", str(port),
+          str(rank), "2", "1", "--stream", str(path), "--backend", "gloo"]
+         for rank in range(2)], timeout=300)
+    for rank, out in enumerate(outs):
+        assert f"worker {rank} OK decode_s=" in out
+
+
+def test_dist_worker_without_a_backend_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the worker takes NCCL")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    p = subprocess.run([sys.executable, "-m", "hevc_tpu_torch.dist_worker",
+                        str(_free_port()), "0", "1", "1"], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode != 0
+    assert "no CUDA device is visible" in p.stderr \
+        and "--backend gloo" in p.stderr, p.stderr[-2000:]

@@ -3,8 +3,10 @@ package's, bit for bit (tolerance 0), on the CPU: the parallel-B GOP
 (``encoder.pgop.ParallelBGopEncoder``: I0, P(n+1), then n B pictures that
 read only the two anchors) with 4 and 8 B pictures in one batch, its stream
 on the port's inline, plan and torch backends with every MD5, a normal
-hierarchical-B RA stream through ``decode_frame_parallel``, and
-``ref_batches``.  No reference comes from the host."""
+hierarchical-B RA stream through ``decode_frame_parallel``, a parallel-B
+GOP of three slices (their own filter offsets, one without loop filtering
+across its edges, one without deblocking) with PCM exempt from the
+filters, and ``ref_batches``.  No reference comes from the host."""
 import jax
 import numpy as np
 import pytest
@@ -88,6 +90,27 @@ def test_frame_parallel_decodes_a_normal_ra_stream():
     assert any(len(b) >= 2 for b in batches), batches
     want = _sequential(stream)
     assert sorted(got) == sorted(want) == list(range(6))
+    for poc in want:
+        _assert_planes(got[poc], want[poc], f"poc {poc}")
+
+
+def test_frame_axis_decodes_a_multislice_batch():
+    """A parallel-B GOP whose pictures have three slices with their own
+    filters and PCM exempt from them: its four B pictures in one batch over
+    4 devices, every picture bit-exact against the sequential decode."""
+    n_b = 4
+    cfg = EncoderConfig(**RA, seed=2, slices=3, slice_filter_params=(
+        dict(beta_offset=2, tc_offset=-2),
+        dict(lf_across=False, beta_offset=-4, tc_offset=2),
+        dict(disable=True)), pcm=0.2, pcm_loop_filter_disabled=True)
+    stream = ParallelBGopEncoder(cfg, n_b).encode(
+        [synth_frame("gradient", 96, 64, t, seed=4) for t in range(n_b + 2)])
+    pipeline.host_refs["count"] = 0
+    got, batches = decode_frame_parallel(stream, ["cpu"] * 4)
+    assert pipeline.host_refs["count"] == 0
+    assert batches == [[0], [n_b + 1], list(range(1, n_b + 1))]
+    want = _sequential(stream)
+    assert sorted(got) == sorted(want) == list(range(n_b + 2))
     for poc in want:
         _assert_planes(got[poc], want[poc], f"poc {poc}")
 

@@ -248,12 +248,8 @@ def test_dpb_from_numpy_matches_pad_np():
 
 def test_unported_spec_features_raise():
     """What the frame program leaves out on purpose: the TPU-aligned pack
-    layout and the sparse (COO) level upload."""
+    layout (the sparse level upload is ported: tests/test_torch_coo.py)."""
     rec = decoded("ipp_wpp")[3][0]
     spec = tuple((k, 1 if k == "pallas" else v) for k, v in rec["spec"])
     with pytest.raises(NotImplementedError, match="Hopper, not TPU"):
-        run_port(dict(rec, spec=spec))
-    spec = tuple((k, (4, v[1]) if k == "coo" else v)
-                 for k, v in rec["spec"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         run_port(dict(rec, spec=spec))

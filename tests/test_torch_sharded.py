@@ -9,7 +9,12 @@ For 4:4:4 (sub 1) the JAX filters map the chroma QP with the 4:2:0 table
 (Table 8-10) where the spec takes Min(qPi, 51) (ROADMAP, 'Where the port
 follows the spec'), so there the chroma planes are held against the port's
 single-device filters alone, which tests/test_torch_filter_maps.py holds
-against the NumPy filters of the spec."""
+against the NumPy filters of the spec.
+
+With a multi-slice picture's inputs (per-4x4 beta/tc offset maps, SAO edge
+restrictions per CTB, the PCM/TQB exemption map; 4:2:0 and 4:2:2) the
+bands are held against the port's single-device filters on the same
+inputs: the JAX banded filters take none of them."""
 import jax
 import numpy as np
 import pytest
@@ -18,7 +23,8 @@ from jax.sharding import Mesh
 
 from hevc_tpu.tpu.sharded import filter_frame_sharded as jax_sharded
 from hevc_tpu_torch.filters import deblock, sao_plane
-from hevc_tpu_torch.sharded import BandLayout, filter_frame_sharded
+from hevc_tpu_torch.sharded import (BandLayout, _nf_masks,
+                                     filter_frame_sharded)
 from hevc_tpu_torch.tables import tables_from_reference
 
 
@@ -119,3 +125,39 @@ def test_sharded_filters_refuse_a_band_of_part_of_a_ctb():
         filter_frame_sharded(BandLayout(["cpu"] * 2), y, cb, cr, qp4, bs_v,
                              bs_h, 0, 0, 0, 0, st, sp, so, sc, bit_depth=8,
                              ctb_log2=6)
+
+
+@pytest.mark.parametrize("n_bands", [2, 4])
+@pytest.mark.parametrize("sub_w,sub_h", [(2, 2), (2, 1)], ids=["420", "422"])
+def test_sharded_filters_with_slice_maps_match_single_device(n_bands, sub_w,
+                                                             sub_h):
+    w, h, ctb_log2, bd = 512, 128, 6, 8
+    rng = np.random.default_rng(11 * n_bands + sub_h)
+    y, _cb, _cr, qp4, bs_v, bs_h = _random_frame(rng, w, h, bd)
+    cb, cr = (rng.integers(0, 1 << bd, (h // sub_h, w // sub_w), np.int32)
+              for _ in range(2))
+    beta = 2 * rng.integers(-6, 7, qp4.shape).astype(np.int32)
+    tc = 2 * rng.integers(-6, 7, qp4.shape).astype(np.int32)
+    flags = rng.integers(0, 256, (h >> ctb_log2, w >> ctb_log2)).astype(
+        np.uint8)
+    nf4 = rng.random(qp4.shape) < 0.1
+    st, sp, so, sc = _random_sao(rng, w, h, ctb_log2)
+    t = torch.from_numpy
+    nf_y, nf_c = _nf_masks(t(nf4), sub_w, sub_h)
+    ry, rcb, rcr = deblock(t(y), t(cb), t(cr), t(qp4), t(bs_v), t(bs_h),
+                           t(beta), t(tc), 1, -1,
+                           tables_from_reference("cpu"), bd=bd, sub_w=sub_w,
+                           sub_h=sub_h, nf_y=nf_y, nf_c=nf_c)
+    single = []
+    for i, p in enumerate((ry, rcb, rcr)):
+        lg = (ctb_log2, ctb_log2) if i == 0 else (
+            ctb_log2 - sub_h + 1, ctb_log2 - sub_w + 1)
+        single.append(sao_plane(p, t(st[i]), t(sp[i]), t(so[i]), t(sc[i]),
+                                lg, bd, edge_flags=t(flags.astype(np.int32)),
+                                nf=nf_y if i == 0 else nf_c))
+    got = filter_frame_sharded(
+        BandLayout(["cpu"] * n_bands), y, cb, cr, qp4, bs_v, bs_h, beta, tc,
+        1, -1, st, sp, so, sc, bit_depth=bd, ctb_log2=ctb_log2, sub_w=sub_w,
+        sub_h=sub_h, edge_flags=flags, no_filter=nf4)
+    for p, name in enumerate(("y", "cb", "cr")):
+        _assert_equal(got[p], single[p].numpy(), f"{name} vs single device")
