@@ -5,11 +5,14 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. checks that the port's native stage A is built (with g++, into
    ``hevc_tpu_torch/build/``; it would silently fall back to Python
-   otherwise) and builds the CUDA kernels from ``csrc/``;
+   otherwise), builds the CUDA kernels from ``csrc/`` and measures the
+   launch floor (``intra_cuda.launch_floor_ms``: the device time between
+   two back-to-back empty launches, the intra kernel's chain step);
 3. holds each kernel against its plain PyTorch version, bit for bit
    (tolerance 0), on random cases of every MC flavour and residual class,
-   and on a picture's mixed MC groups and all four residual classes in
-   one launch each;
+   on a picture's mixed MC groups and all four residual classes in one
+   launch each, and the intra kernel on the six seeded chunk tables of
+   ``hevc_tpu_torch.intra_cases`` (one launch per live chunk);
 4. decodes a 96x80 IPP stream on the card and compares it with the
    port's inline NumPy decoder, then decodes a 4-frame 1920x1080 IPP/WPP
    stream (the headline stream of ``bench.py``, cut to 4 frames and
@@ -17,8 +20,11 @@
    kernel's inputs) and once counted, through ``hevc_tpu_torch.cli.main``,
    and checks every frame's SEI MD5, that MC launched once and the
    residual add at most once per inter picture on that run, and that the
-   outputs lived on the card; then holds both kernels against their plain
-   versions on the captured rows of a real 1080p P frame and times them
+   outputs lived on the card, and that the intra kernel launched once per
+   live chunk of every picture; then holds both inter kernels against
+   their plain versions on the captured rows of a real 1080p P frame and
+   the intra kernel on the captured I picture (``intra_place``: error 0,
+   its time beside the plain version's and its bound) and times them
    there with CUDA events and ``torch.profiler`` (after the counted run,
    which no profiler session may precede: see PERF.md).  The 1080p
    streams are encoded once into ``.bench/`` by worker processes, one a
@@ -34,7 +40,8 @@
    checked, every output and device DPB entry on the card, MC launched
    once per P picture and the residual add at least once; then holds both
    inter kernels against their plain versions on a captured P picture of
-   the stream (tolerance 0) and prints fps and the stage split; then the
+   the stream and the intra kernel on its I picture (tolerance 0) and
+   prints fps and the stage split; then the
    COO check: how many pictures of the main and formats streams shipped
    their level pools as (idx, val) pairs on their counted decodes, and on
    the first such picture the frame program on the pairs against the
@@ -49,7 +56,9 @@
    every MD5 of both layers, every picture through the frame program,
    ``mc`` once per P picture of both layers, no reference from the host;
    both inter kernels against their plain versions on a captured EL
-   picture, the upsampler and a CGS colour mapping on the card against
+   picture, the intra kernel on the EL picture with the most intra
+   records (the BL's I picture where the EL pictures hold none), the
+   upsampler and a CGS colour mapping on the card against
    the CPU, and each layer's fps without the fetch
    (``LazyPlanes.device_ready``);
 7. the CABAC path: captures every WPP substream of that 1080p stream
@@ -78,10 +87,11 @@
    synchronised), a counted run (launch counts and host references from 0
    just before, read just after; each picture's stage B by CUDA events):
    every plane equal to the sequential decode, 0 references from the
-   host, ``mc`` once per band of each P picture (6); both inter kernels
-   against their plain versions on a P picture's bands 0 and 1 (tolerance
-   0); ``decode_stream_banded`` over ``iter_gop_banded`` with the halo
-   forced to widen mid-GOP; ``TorchDecoder`` on the same stream for
+   host, ``mc`` once per band of each P picture (6), the intra kernel once
+   per live chunk of every band; both inter kernels against their plain
+   versions on a P picture's bands 0 and 1, the intra kernel on the I
+   picture's band 1 (tolerance 0); ``decode_stream_banded`` over
+   ``iter_gop_banded`` with the halo forced to widen mid-GOP; ``TorchDecoder`` on the same stream for
    comparison; with three cards or more ``python -m
    hevc_tpu_torch.dist_worker --stream BANDED_STREAM`` over NCCL, one
    process and one band a card, each rank's band equal to the same
@@ -119,8 +129,9 @@
    the rate device copies reach in L2 (``probes.copy_rates``), over which
    the TMA ring's bytes on the probe's planes give its bound there;
 12. prints the kernel table as JSON: per kernel its launches on the
-    counted run (the inter kernels': the main stream's), its error against
-    the plain version, the kernel's, the plain version's and (where one
+    counted run (the inter and intra kernels': the main stream's), its
+    error against the plain version (the intra kernel's: the largest over
+    every place it was held), the kernel's, the plain version's and (where one
     PyTorch call computes the same function) that call's ms, and the
     bound: the largest of the bytes the function must move over 3.35 TB/s,
     its operations over the card's peak rate for their type and, where the
@@ -145,8 +156,9 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
-from hevc_tpu_torch.bounds import HBM_BYTES_S, bound_ms, mc_work, resid_work
-from hevc_tpu_torch.capture import Capture, kernel_errors
+from hevc_tpu_torch.bounds import (HBM_BYTES_S, bound_ms, intra_work,
+                                   mc_work, resid_work)
+from hevc_tpu_torch.capture import Capture, intra_args, kernel_errors
 from hevc_tpu_torch.device import cuda_ms, profiler_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -160,6 +172,12 @@ PROFILE_LIBRARY = []
 # (bench.Replay, replays) of phase_bench: their device-busy time is traced
 # there too
 PROFILE_REPLAYS = []
+# the device time between two back-to-back empty launches, ms: (queued on
+# the card, as the host issues them); the intra kernel's chain bound is the
+# live chunks times the first (prepare)
+FLOOR = []
+# every intra kernel check's (place, error): all must be 0 (intra_place)
+INTRA_ERRORS = []
 CACHE = os.path.join(ROOT, ".bench")
 W, H, QP, FRAMES = 1920, 1080, 30, 4
 STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_{FRAMES}f.265")
@@ -487,15 +505,101 @@ def phase_random_kernels(dev):
             want = resid_add_plain(c.clone(), fields, pools, bd)
             err = int((got - want).abs().max())
             assert err == 0, f"resid_add_kernel != plain on class {cls}"
+    from hevc_tpu_torch import intra, intra_cuda
+    from hevc_tpu_torch.intra_cases import random_case
+    n_live = 0
+    for seed in range(6):
+        case = random_case(seed)
+        counts = intra.chunk_counts(case[1])
+        c, scal, avail, resids = (
+            torch.from_numpy(case[0]).to(dev),
+            *([torch.from_numpy(a).to(dev) for a in case[k]]
+              for k in (1, 2, 3)))
+        before = build.launches["intra"]
+        got = intra_cuda.reconstruct_wavefront(c.clone(), scal, avail,
+                                               resids, case[4], tabs, counts)
+        live = intra_cuda.live_chunks(counts)
+        assert build.launches["intra"] == before + live, "intra launches"
+        want = intra.reconstruct_wavefront(c.clone(), scal, avail, resids,
+                                           case[4], tabs, counts)
+        err = int((got - want).abs().max())
+        assert err == 0, f"intra_chunk_kernel != plain on random case {seed}"
+        n_live += live
+    INTRA_ERRORS.append(("random cases", 0))
     torch.cuda.synchronize()
     log(f"random kernel cases: {len(MC_CASES)} MC flavours, their mixed "
         "groups in one launch, and 4 residual classes alone and together "
-        "at 8 and 10 bit, bit-exact")
+        "at 8 and 10 bit, bit-exact; the intra kernel on 6 random cases "
+        "(every mode of every size, filters on and off, 8 and 10 bit, "
+        f"partial availability, padding, empty chunks), {n_live} launches, "
+        "bit-exact")
 
 
-def phase_real_kernels(cap, dev):
-    """Kernel vs plain on the largest captured 1080p row sets; times and
-    bounds."""
+def intra_records(args):
+    """The live records of one captured intra wavefront call."""
+    return sum(int(c.sum()) for c in args[5])
+
+
+def intra_place(label, args, smi):
+    """The intra kernel against its plain version on one captured
+    picture's (or band's) wrapper inputs (``Capture.intra``: canvas, scal,
+    avail, resids, bd, counts), bit for bit (tolerance 0); the kernel's ms
+    a call (CUDA events over its launches, in place on a copy; traced by
+    ``torch.profiler`` at the end), the plain version's ms (CUDA events
+    around the one call compared), its launches a call and the bound: the
+    larger of the bytes (``bounds.intra_work``) over 3.35 TB/s and the
+    chain, the live chunks times the queued launch floor (FLOOR).  Returns
+    (error, ms, plain ms, bound)."""
+    import torch
+    from hevc_tpu_torch import intra, intra_cuda
+    from hevc_tpu_torch.tables import tables_from_reference
+    canvas, scal, avail, resids, bd, counts = args
+    tabs = tables_from_reference(canvas.device)
+    got = intra_cuda.reconstruct_wavefront(canvas.clone(), scal, avail,
+                                           resids, bd, tabs, counts)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    want = intra.reconstruct_wavefront(canvas.clone(), scal, avail, resids,
+                                       bd, tabs, counts)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    err = int((got - want).abs().max())
+    assert err == 0, f"intra_chunk_kernel != plain on {label} ({err})"
+    INTRA_ERRORS.append((label, err))
+    work = canvas.clone()
+
+    def launch():
+        intra_cuda.reconstruct_wavefront(work, scal, avail, resids, bd, tabs,
+                                         counts)
+
+    ms = cuda_ms(launch, iters=10, warmup=2)
+    PROFILE.append((f"intra_chunk_kernel {label}", launch))
+    n_bytes, chunks = intra_work([x.cpu().numpy() for x in scal], counts,
+                                 resids)
+    chain = chunks * FLOOR[0][0]
+    bound = bound_ms(n_bytes, 0, chain)
+    log(f"intra {label}: {intra_records(args)} records in {chunks} live "
+        f"chunks (launches a call), {bd}-bit, canvas "
+        f"{tuple(canvas.shape)}; kernel == plain (error 0); kernel {ms} ms "
+        f"a call by CUDA events ({ms / chunks * 1e3} us a launch), plain "
+        f"{plain_ms} ms ({plain_ms / ms:.1f}x); bound {bound[0]} ms "
+        f"({bound[1]}: bytes {n_bytes} B = {n_bytes / HBM_BYTES_S * 1e3} "
+        f"ms, chain {chunks} x {FLOOR[0][0]} ms = {chain} ms; kernel at "
+        f"{bound[0] / ms:.3f} of it) ({smi})")
+    return err, ms, plain_ms, bound
+
+
+def best_intra(calls):
+    """The captured intra call with the most live records."""
+    return max(calls, key=intra_records)
+
+
+def phase_real_kernels(cap, dev, smi):
+    """Kernel vs plain on the largest captured 1080p row sets and on the
+    I picture's intra records; times and bounds."""
     import torch
     from hevc_tpu_torch import mc_cuda
     from hevc_tpu_torch.mc import mc_plain, resid_add_plain
@@ -553,9 +657,11 @@ def phase_real_kernels(cap, dev):
         f"{mc_call_ms} (table, upload, launch), plain {mc_plain_ms}; "
         f"resid_add launch {ra_ms}, wrapper "
         f"{ra_call_ms}, plain {ra_plain_ms}")
+    intra = intra_place("main stream I picture", best_intra(cap.intra), smi)
     return {"mc": (mc_err, mc_ms, mc_plain_ms, bound_ms(mc_b, mc_ops)),
             "resid_add": (ra_err, ra_ms, ra_plain_ms,
-                          bound_ms(ra_b, ra_ops))}
+                          bound_ms(ra_b, ra_ops)),
+            "intra": intra}
 
 
 def phase_bench(dev, smi):
@@ -607,21 +713,26 @@ def counted_decode(decode, dev, pipeline, trace, build):
     records and slices, whether its stage A ran in the Python syntax layer
     and how many (idx, val) pairs its level pool shipped as (0: dense);
     every output and DPB entry must be on ``dev``, and every reference
-    must come from the device DPB.  Returns (decode's result,
-    seen, counts, split, wall seconds)."""
+    must come from the device DPB; the intra kernel must launch once per
+    live chunk of the pictures' packs (``live``).  Returns (decode's
+    result, seen, counts, split, wall seconds)."""
+    from hevc_tpu_torch import intra, intra_cuda
     from hevc_tpu_torch import native as N
-    seen, coo = [], []
+    seen, coo, live = [], [], []
     orig_finish, orig_pack = pipeline.finish_frame, pipeline.pack_frame
 
     def pack(pic):
         out = orig_pack(pic)
         coo.append(dict(out[6])["coo"][0])
+        scal = pipeline.host_views(np.asarray(out[0], np.int32), out[1],
+                                   dict(out[6]))[0]
+        live.append(intra_cuda.live_chunks(intra.chunk_counts(scal)))
         return out
 
     def finish(pic, lay, poc, device):
         out = orig_finish(pic, lay, poc, device)
         seen.append(dict(
-            coo=coo[-1],
+            coo=coo[-1], live=live[-1],
             layer=lay.layer_id,
             devices={out[0].device.type} | {
                 t.device.type for t in lay.dpb_dev[poc]},
@@ -643,12 +754,15 @@ def counted_decode(decode, dev, pipeline, trace, build):
     finally:
         pipeline.finish_frame, pipeline.pack_frame = orig_finish, orig_pack
     wall = time.perf_counter() - t0
-    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
+    counts = {k: build.launches[k] for k in ("mc", "resid_add", "intra")}
     split = trace.report()
     assert all(s["devices"] == {dev.type} for s in seen), \
         f"outputs or DPB entries not on the card: {seen}"
     assert pipeline.host_refs["count"] == 0, \
         f"{pipeline.host_refs['count']} references resolved from the host"
+    assert counts["intra"] == sum(s["live"] for s in seen) > 0, \
+        f"intra launches {counts['intra']} for the live chunks " \
+        f"{[s['live'] for s in seen]}"
     return result, seen, counts, split, wall
 
 
@@ -695,6 +809,7 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
     mc_err, ra_err, _at = captured_kernel_errors(cap)
     assert mc_err == 0 and ra_err == 0, \
         f"{name}: kernels != plain ({mc_err}, {ra_err})"
+    intra_place(f"format {name[0]} I picture", best_intra(cap.intra), smi)
     torch.cuda.synchronize()
     log(f"format {name}: {n_frames} frames, every MD5 correct, outputs and "
         f"DPB on the card, launches {counts} for {n_inter} P pictures, "
@@ -847,6 +962,17 @@ def phase_shvc(dev, smi, cli, decoder, pipeline, trace, build):
     mc_err, ra_err, at = captured_kernel_errors(cap, layer=1)
     assert mc_err == 0 and ra_err == 0, \
         f"SHVC: kernels != plain on EL picture {at} ({mc_err}, {ra_err})"
+    # the EL picture with the most intra records; where the EL pictures
+    # hold none (each predicted from the inter-layer reference), the BL's I
+    # picture
+    n_el = [intra_records(a) for a, at in zip(cap.intra, cap.intra_at)
+            if at[0] == 1]
+    k = max(range(len(cap.intra)), key=lambda i: (
+        cap.intra_at[i][0] == 1 and intra_records(cap.intra[i]) > 0,
+        intra_records(cap.intra[i])))
+    log(f"SHVC: intra records of the EL pictures {n_el}; the intra kernel "
+        f"is held on picture {cap.intra_at[k]} (layer, POC)")
+    intra_place(f"SHVC picture {cap.intra_at[k]}", cap.intra[k], smi)
     up_err = 0
     for planes, a, k, il in cap.upsample:
         assert il[0].shape == (SHVC_EL[1], SHVC_EL[0]), il[0].shape
@@ -939,11 +1065,12 @@ def synced(fn, out):
 
 class BandCapture:
     """On an uncounted banded decode: the inputs each band's recon hands the
-    two inter kernel wrappers, keyed (POC, band), and each picture's stage
-    B and each halo exchange in it timed with the cards synchronised."""
+    three kernel wrappers, keyed (POC, band) (the intra wavefront's as
+    ``Capture.intra``), and each picture's stage B and each halo exchange
+    in it timed with the cards synchronised."""
 
     def __init__(self):
-        self.mc, self.resid = {}, {}
+        self.mc, self.resid, self.intra = {}, {}, {}
         self.at = None
         self.step_ms, self.exchange_ms, self.exchanges = [], [], []
 
@@ -951,7 +1078,8 @@ class BandCapture:
     def installed(self):
         from hevc_tpu_torch import mc_cuda, sharded
         orig = (mc_cuda.mc, mc_cuda.resid_add, sharded.band_recon,
-                sharded.band_step, sharded._exchange)
+                sharded.band_step, sharded._exchange,
+                sharded.reconstruct_wavefront)
 
         def mc(canvas, refs_l, refs_c, groups, bd):
             self.mc[self.at] = (canvas.clone(), refs_l.clone(),
@@ -970,6 +1098,12 @@ class BandCapture:
             self.at = (self.at[0], self.at[1] + 1)
             return orig[2](*a)
 
+        def reconstruct_wavefront(canvas, scal, avail, resids, bd, tables,
+                                  counts=None):
+            self.intra[self.at] = intra_args(canvas, scal, avail, resids,
+                                             bd, counts)
+            return orig[5](canvas, scal, avail, resids, bd, tables, counts)
+
         timed_step = synced(orig[3], self.step_ms)
 
         def band_step(layout, fb, *a):
@@ -982,11 +1116,13 @@ class BandCapture:
         mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
         sharded.band_recon, sharded.band_step = band_recon, band_step
         sharded._exchange = synced(orig[4], self.exchange_ms)
+        sharded.reconstruct_wavefront = reconstruct_wavefront
         try:
             yield self
         finally:
             (mc_cuda.mc, mc_cuda.resid_add, sharded.band_recon,
-             sharded.band_step, sharded._exchange) = orig
+             sharded.band_step, sharded._exchange,
+             sharded.reconstruct_wavefront) = orig
 
 
 def free_port():
@@ -1029,10 +1165,11 @@ def check_bands(outs, ref, what):
 def counted_banded(layout, frames, halo, pipeline, build):
     """``decode_gop_banded`` picture by picture, counted: launch counts and
     host references from 0 just before, read just after; each picture's
-    stage B by CUDA events, the cards synchronised.  Returns (outputs, ms
-    per picture, launch counts, references from the host)."""
+    stage B by CUDA events, the cards synchronised; the intra kernel must
+    launch once per live chunk of every band.  Returns (outputs, ms per
+    picture, launch counts, references from the host)."""
     import torch
-    from hevc_tpu_torch import sharded
+    from hevc_tpu_torch import intra, intra_cuda, sharded
     dpb, outs, ev_ms = {}, [], []
     build.reset_launches()
     pipeline.host_refs["count"] = 0
@@ -1045,11 +1182,15 @@ def counted_banded(layout, frames, halo, pipeline, build):
         e1.record()
         e1.synchronize()
         ev_ms.append(e0.elapsed_time(e1))
-    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
+    counts = {k: build.launches[k] for k in ("mc", "resid_add", "intra")}
+    live = sum(intra_cuda.live_chunks(intra.chunk_counts(
+        fb["bands"][k].scal)) for fb in frames for k in layout.bands)
+    assert counts["intra"] == live > 0, \
+        f"banded: intra launches {counts['intra']} for {live} live chunks"
     return outs, ev_ms, counts, pipeline.host_refs["count"]
 
 
-def banded_decode(path, n_bands, n_frames, label, pipeline, build):
+def banded_decode(path, n_bands, n_frames, label, pipeline, build, smi):
     """``path`` in n_bands column bands through ``sharded`` (on one card,
     or spread over the cards there are): the host's stage A and band packs
     (``band.prepare_gop_banded``, every MD5 of its decode correct), a
@@ -1086,6 +1227,9 @@ def banded_decode(path, n_bands, n_frames, label, pipeline, build):
             for k in (0, 1)}
     assert all(e == (0, 0) for e in errs.values()), \
         f"{label}: kernels != plain on POC {poc}'s bands: {errs}"
+    poc0 = frames[0]["poc"]
+    intra_place(f"{label} I picture POC {poc0} band 1", cap.intra[(poc0, 1)],
+                smi)
     return dict(data=data, frames=frames, ref=ref, halo=halo, layout=layout,
                 outs=outs, ev_ms=ev_ms, counts=counts, cap=cap, errs=errs,
                 poc=poc, n_inter=n_inter, stage_a=stage_a)
@@ -1101,7 +1245,7 @@ def phase_banded(dev, smi, decoder, pipeline, build):
     and MONO_STREAM in BANDS bands (``phase_banded_mono``)."""
     from hevc_tpu_torch import band, sharded
     r = banded_decode(BANDED_STREAM, BANDS, BANDED_FRAMES, "banded",
-                      pipeline, build)
+                      pipeline, build, smi)
     data, layout, outs, halo = r["data"], r["layout"], r["outs"], r["halo"]
     counts, errs, poc, cap = r["counts"], r["errs"], r["poc"], r["cap"]
 
@@ -1188,7 +1332,7 @@ def phase_banded_slices(smi, pipeline, build):
     name = FORMAT_A
     n_frames = FORMATS[name][1]
     r = banded_decode(format_path(name), BANDS_A, n_frames, "banded A",
-                      pipeline, build)
+                      pipeline, build, smi)
     fis = [f["filters"] for f in r["frames"]]
     assert all(fi.per_slice and fi.sao_flags is not None for fi in fis), \
         "banded A: not per-slice filter inputs"
@@ -1302,12 +1446,13 @@ def phase_frame_axis(dev, smi, decoder, pipeline, build):
     finally:
         pgop_frame.band_step = orig
     wall = time.perf_counter() - t0
-    counts = {k: build.launches[k] for k in ("mc", "resid_add")}
+    counts = {k: build.launches[k] for k in ("mc", "resid_add", "intra")}
     host = pipeline.host_refs["count"]
     assert batches == [[0], [PGOP_B + 1], list(range(1, PGOP_B + 1))], \
         f"frame axis: batches {batches}"
     assert host == 0, f"frame axis: {host} references from the host"
-    assert counts["mc"] == n - 1 and counts["resid_add"] > 0, \
+    assert counts["mc"] == n - 1 and counts["resid_add"] > 0 \
+        and counts["intra"] > 0, \
         f"frame axis: launches {counts} for {n - 1} inter pictures"
     for f in seq:
         got = [p.cpu().numpy() for p in out[f.poc]]
@@ -1625,8 +1770,8 @@ def main():
 
 
 def prepare(dev):
-    """Build stage A and the kernels; the random kernel cases and the small
-    stream."""
+    """Build stage A and the kernels; the launch floor, the random kernel
+    cases and the small stream."""
     from hevc_tpu_torch import build, native
     assert native.available(), "native stage A failed to build"
     log(f"native stage A: {os.path.relpath(native._SO, ROOT)}")
@@ -1635,6 +1780,14 @@ def prepare(dev):
     build.load()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(os.path.relpath(s, ROOT) for s in build.sources())})")
+    from hevc_tpu_torch import intra_cuda
+    FLOOR.append(intra_cuda.launch_floor_ms(dev))
+    FLOOR.append(intra_cuda.launch_floor_ms(dev))
+    assert 0 < FLOOR[0][0] < 0.05, FLOOR
+    log(f"launch floor (hevc_launch_floor: 500 empty launches back to back "
+        f"on one stream), ms a launch: queued on the card {FLOOR[0][0]}, "
+        f"{FLOOR[1][0]}; as the host issues them {FLOOR[0][1]}, "
+        f"{FLOOR[1][1]}; the intra chain bound takes {FLOOR[0][0]}")
     phase_random_kernels(dev)
     phase_small_reference(dev)
 
@@ -1688,9 +1841,14 @@ def run(smi, dev):
         f"{k} {v['total_s'] * 1e3 / FRAMES}"
         for k, v in sorted(split.items())))
     log(f"inline decode, stages synchronised, ms per call: {cap.report()}")
-    log(f"launch counts of the counted run: {counts}")
+    log(f"1080p I picture (POC 0), card synchronised: frame program "
+        f"{cap.ms['frame_program'][0]} ms, of which the intra wavefront "
+        f"{cap.ms['reconstruct_wavefront'][0]} ms; the P pictures' frame "
+        f"programs {cap.ms['frame_program'][1:]} ms ({smi})")
+    log(f"launch counts of the counted run: {counts} (intra: the live "
+        f"chunks {[s['live'] for s in seen]})")
 
-    real = phase_real_kernels(cap, dev)
+    real = phase_real_kernels(cap, dev, smi)
     phase_bench(dev, smi)
     sparse = {STREAM: [s["coo"] for s in seen]}
     for name in FORMATS:
@@ -1706,6 +1864,7 @@ def run(smi, dev):
             f"{name}_kernel", "hevc_tpu_torch/csrc/mc.cu",
             f"hevc_tpu/tpu/mc_pallas.py:{line}", counts[name], err, ms,
             plain_ms, None, bound))
+
     n, err, ms, plain_ms, bound = phase_cabac(data, dev)
     kernels.append(kernel_row(
         "cabac_kernel", "hevc_tpu_torch/csrc/cabac.cu",
@@ -1713,6 +1872,15 @@ def run(smi, dev):
         bound))
     phase_banded(dev, smi, decoder, pipeline, build)
     phase_frame_axis(dev, smi, decoder, pipeline, build)
+    # the intra kernel's row: launches on the main stream's counted run, its
+    # largest error over every place it was held against the plain version
+    _err, ms, plain_ms, bound = real["intra"]
+    kernels.append(kernel_row(
+        "intra_kernel", "hevc_tpu_torch/csrc/intra.cu",
+        "hevc_tpu/tpu/intra.py:201", counts["intra"],
+        max(e for _p, e in INTRA_ERRORS), ms, plain_ms, None, bound))
+    log(f"intra kernel held against its plain version (error) at: "
+        f"{INTRA_ERRORS}")
     for name, row in phase_probes(dev, smi).items():
         kernels.append(kernel_row(
             f"{name}_kernel", "hevc_tpu_torch/csrc/probes.cu",

@@ -7,9 +7,10 @@ paths (``bitstream/``, ``cabac/``, ``coding/``, ``ops/``, ``io/``,
 built with ``g++`` into ``build/``).  ``decoder/core.py`` is the stream
 decoder with the port's stage B behind ``recon_backend="torch"``: the
 host pack (``pack.py``) and the frame program (``pipeline.py``) on a
-torch device, the two inter kernels of which (motion compensation and
-the inter residual add) are written by hand in CUDA C++ for Hopper
-(``csrc/``).  ``hevc_tpu`` stays the bit-exact reference.
+torch device, three stages of which (motion compensation, the inter
+residual add and the intra wavefront) are kernels written by hand in
+CUDA C++ for Hopper (``csrc/``).  ``hevc_tpu`` stays the bit-exact
+reference.
 
 Entry points: ``TorchDecoder`` (``Decoder(recon_backend="torch")``) and
 ``python -m hevc_tpu_torch.cli``.  Several devices: ``band.py`` and

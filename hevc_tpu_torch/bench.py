@@ -654,7 +654,8 @@ def bench_stages(cfg, dev):
     if dev.type == "cuda":
         us = {}
         for name, (fn, a, k) in calls.items():
-            if name in ("mc", "resid_add"):    # they write their canvas
+            if name in ("mc", "resid_add", "reconstruct_wavefront"):
+                # the kernels write their canvas in place
                 a = (a[0].clone(),) + tuple(a[1:])
             us[f"{STAGE_KEYS[name]}_{s}"] = cuda_ms(
                 functools.partial(fn, *a, **k), iters=16) * 1e3

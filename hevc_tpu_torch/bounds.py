@@ -5,19 +5,20 @@ A bound is the larger of two times: the bytes the function must move
 rate, and its operations over the card's peak rate for their type.  The
 rates are NVIDIA's data sheet for the H100 SXM at its full 700 W.
 
-``mc_work`` / ``resid_work`` count the two inter kernels' work on one
-picture's inputs (what ``chip_smoke.py`` holds each kernel's time
-against); ``stage_b_work`` counts every stage of the frame program
-(``pipeline.frame_program``) from the inputs of one call, the inter terms
-through those two functions, so the kernels' bounds and the stage-B bytes
-are one count.
+``mc_work`` / ``resid_work`` / ``intra_work`` count the three decoder
+kernels' work on one picture's inputs (what ``chip_smoke.py`` holds each
+kernel's time against); ``stage_b_work`` counts every stage of the frame
+program (``pipeline.frame_program``) from the inputs of one call, the
+kernels' terms through those functions, so the kernels' bounds and the
+stage-B bytes are one count.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import mc_cuda
+from . import intra_cuda, mc_cuda
+from .intra import chunk_counts
 from .pack import PAD_REF
 from .pipeline import host_views
 
@@ -95,6 +96,30 @@ def resid_work(fields, pools):
     return n_bytes, ops
 
 
+def intra_work(scal_host, counts, resids):
+    """(bytes, live chunks) of the intra wavefront on one picture's records.
+
+    scal_host: per class the host copy of the records [n_chunks, B, 8];
+    counts: ``intra.chunk_counts`` of them; resids: the four residual pools
+    (only their shapes are read).  Bytes: per live record of n x n (cy >=
+    0) its record (8 int32) and availability row (128 bytes), its 4n + 1
+    neighbours read and its block written (int32); each residual block the
+    live records use read once (the slot clamped into the pool, as the
+    kernel clamps it).  The live chunks are those holding a record: the
+    kernel's launches, one dependent step each."""
+    n_bytes = 0
+    for c, s in enumerate(scal_host):
+        n = 4 << c
+        s = np.asarray(s)
+        if not s.size:
+            continue
+        rec = s[s[:, :, 0] >= 0]
+        slots = np.unique(np.clip(rec[:, 3], 0, resids[c].shape[0] - 1))
+        n_bytes += rec.shape[0] * (8 * 4 + 128 + 4 * (4 * n + 1)
+                                   + 4 * n * n) + 4 * n * n * slots.size
+    return n_bytes, intra_cuda.live_chunks(counts)
+
+
 def stage_b_work(args):
     """{stage: (bytes, int32 operations)} of one call of
     ``pipeline.frame_program(*args)``: what each stage must move on the
@@ -108,9 +133,7 @@ def stage_b_work(args):
     - ``residuals``: the int16 levels and their rows read, the int32
       pools (a zero slot each) written;
     - ``mc``, ``resid_add``: ``mc_work`` and ``resid_work``;
-    - ``intra``: per live intra record of n x n, its record and
-      availability row, its 4n + 1 neighbours and residual read and the
-      block written;
+    - ``intra``: ``intra_work``'s bytes;
     - ``deblock``: the planes read and written by each of the two passes,
       and the QP and boundary-strength maps read;
     - ``sao``: the planes read and written once, and the parameter maps
@@ -147,11 +170,7 @@ def stage_b_work(args):
                          device="meta") for c, s in enumerate(sizes)]
     work["resid_add"] = resid_work([torch.from_numpy(f) for f in fields],
                                    pools)
-    intra = 0
-    for c, s in enumerate(sizes):
-        live = int((scal[c][:, :, 0] >= 0).sum()) if scal[c].size else 0
-        intra += live * (8 * 4 + 128 + 4 * (4 * s + 1) + 2 * 4 * s * s)
-    work["intra"] = (intra, 0)
+    work["intra"] = (intra_work(scal, chunk_counts(scal), pools)[0], 0)
     regions = S["regions"][:1] if S["mono"] else S["regions"]
     frame32 = sum(4 * h * w for _oy, _ox, h, w in regions)
     maps4 = S["h4"] * S["w4"]

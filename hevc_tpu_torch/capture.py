@@ -1,13 +1,13 @@
 """Captures of what the frame program hands its stages, for the checks and
 timings of ``chip_smoke.py`` and ``python -m hevc_tpu_torch.bench``.
 
-``Capture`` records, over a whole decode, the inputs of the two inter
-kernel wrappers and the SHVC upsampler and times every stage with the card
-synchronised; ``StageInputs`` records the inputs of each stage of one
-``frame_program`` call, so that each stage can be timed alone;
-``kernel_errors`` holds both inter kernels against their plain versions
-on captured inputs.  ``pipeline.py`` imports the stage functions by name,
-so they are patched in its namespace.
+``Capture`` records, over a whole decode, the inputs of the three kernel
+wrappers (MC, residual add, intra wavefront) and the SHVC upsampler and
+times every stage with the card synchronised; ``StageInputs`` records the
+inputs of each stage of one ``frame_program`` call, so that each stage can
+be timed alone; ``kernel_errors`` holds both inter kernels against their
+plain versions on captured inputs.  ``pipeline.py`` imports the stage
+functions by name, so they are patched in its namespace.
 """
 from __future__ import annotations
 
@@ -25,9 +25,11 @@ from .tables import tables_from_reference
 class Capture:
     """On an uncounted decode: records the inputs the frame program
     hands each kernel wrapper (and the picture, (layer, POC), each came
-    from) and the SHVC upsampler's inputs and outputs, and times each stage
-    of the frame program and of the inter-layer build with the device
-    synchronised before and after (ms per call)."""
+    from; the intra wavefront's canvas copied before the kernel writes it
+    in place, its counts as host arrays) and the SHVC upsampler's inputs
+    and outputs, and times each stage of the frame program and of the
+    inter-layer build with the device synchronised before and after (ms
+    per call)."""
 
     STAGES = ("frame_program", "residuals", "reconstruct_wavefront",
               "deblock", "deblock_luma", "sao_plane")
@@ -38,6 +40,7 @@ class Capture:
 
     def __init__(self):
         self.mc, self.resid, self.mc_at, self.resid_at = [], [], [], []
+        self.intra, self.intra_at = [], []
         self.upsample = []
         self.at = None
         self.ms = {k: [] for k in self.STAGES + ("mc", "resid_add")
@@ -87,10 +90,21 @@ class Capture:
                                   [p.clone() for p in out]))
             return out
 
+        intra_t = timed(orig["reconstruct_wavefront"],
+                        "reconstruct_wavefront")
+
+        def reconstruct_wavefront(canvas, scal, avail, resids, bd, tables,
+                                  counts=None):
+            self.intra.append(intra_args(canvas, scal, avail, resids, bd,
+                                         counts))
+            self.intra_at.append(self.at)
+            return intra_t(canvas, scal, avail, resids, bd, tables, counts)
+
         mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
         pipeline.finish_frame = finish
         for k, fn in orig.items():
             setattr(pipeline, k, timed(fn, k))
+        pipeline.reconstruct_wavefront = reconstruct_wavefront
         for m, f, k in self.IL:
             setattr(mods[m], f, upsample_frame if k == "il_upsample"
                     else timed(orig_il[k], k))
@@ -107,6 +121,15 @@ class Capture:
     def report(self):
         return "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v)
                          for k, v in self.ms.items() if v)
+
+
+def intra_args(canvas, scal, avail, resids, bd, counts):
+    """One intra wavefront call's inputs as a capture keeps them: the
+    canvas copied before the kernel writes it in place, the counts as host
+    arrays; the records, masks and pools, which nothing writes, as they
+    are."""
+    return (canvas.clone(), scal, avail, resids, bd,
+            [np.array(c) for c in counts])
 
 
 def _clone(x):
@@ -172,3 +195,4 @@ def kernel_errors(mc_args, resid_args):
     got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
     want = resid_add_plain(canvas.clone(), fields, pools, bd)
     return mc_err, int((got - want).abs().max())
+

@@ -2,8 +2,8 @@
 
 Port of ``hevc_tpu/tpu/pipeline.py``: ``frame_program`` is
 ``_pipeline_frame`` (residuals -> MC kernel -> residual-add kernel ->
-intra wavefront -> deblocking -> SAO, then edge-padding of the planes into
-the device DPB and one fused output buffer), ``finish_frame`` is
+intra wavefront kernel -> deblocking -> SAO, then edge-padding of the
+planes into the device DPB and one fused output buffer), ``finish_frame`` is
 ``finish_frame_pipeline``, ``LazyPlanes`` the deferred host fetch and
 ``pad_dev_refs`` seeds a device DPB from device planes (the SHVC
 inter-layer reference).  Reference planes stay on the device between
@@ -23,7 +23,8 @@ from . import trace
 from . import upsample as UP
 from .coding.picture import crop_conf_win
 from .filters import deblock, deblock_luma, sao_plane
-from .intra import chunk_counts, reconstruct_wavefront
+from .intra import chunk_counts
+from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF, pack_frame
 from .recon import residuals
 from .tables import dpb_from_numpy, pad_refs, tables_from_reference

@@ -5,8 +5,8 @@ Port of ``hevc_tpu/tpu/sharded.py``: the reference's tile parallelism
 for several devices.  A tile-coded frame splits into equal column bands;
 each band runs the whole of stage B on its device — residuals, MC (the
 Hopper ``mc_kernel`` reading the band's reference windows), the residual
-add (``resid_add_kernel``), the intra wavefront, deblocking and SAO — and
-neighbours exchange halo columns:
+add (``resid_add_kernel``), the intra wavefront (``intra_chunk_kernel``),
+deblocking and SAO — and neighbours exchange halo columns:
 
 - deblocking: 16 luma columns of the unfiltered plane (``16 // sub_w``
   chroma, ``16 // 4`` of the per-4x4 maps: QP, boundary strength, and
@@ -41,7 +41,8 @@ import torch.distributed as dist
 from . import mc_cuda
 from .band import mc_rows
 from .filters import _chroma_pass, _keep, _luma_pass, _t, sao_plane
-from .intra import chunk_counts, reconstruct_wavefront
+from .intra import chunk_counts
+from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF
 from .pipeline import _upload
 from .recon import residuals

@@ -4,17 +4,25 @@ tests/test_mc_pallas.py plus padding rows, and one launch each for a
 picture's mixed MC groups and all four residual classes; whole streams,
 SHVC, the CABAC and probe kernels; the banded decode (a multi-slice PCM
 stream among them), the frame axis and the banded decode across processes
-over NCCL on every card; the sparse (COO) level upload.  Needs a card
-(marker `cuda`); skips without one.  This file imports only the port (no
-JAX, no hevc_tpu), so it runs on a machine that has only torch:
-python -m pytest tests/test_torch_cuda.py
+over NCCL on every card; the sparse (COO) level upload; the intra
+wavefront kernel on the seeded random cases of hevc_tpu_torch.intra_cases.
+Needs a card (marker `cuda`); skips without one.  This file imports only
+the port (no JAX, no hevc_tpu), so it runs on a machine that has only
+torch.  Run it with JAX kept off the card:
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_cuda.py
+
+(tests/conftest.py asks JAX for its devices, which starts every backend
+JAX finds: without JAX_PLATFORMS=cpu a JAX CUDA client may take most of
+the card; the ``card`` fixture fails then.)
 
 The NumPy case generators here are shared with tests/test_torch_mc.py."""
 import numpy as np
 import pytest
 import torch
 
-from hevc_tpu_torch import build, mc_cuda
+from hevc_tpu_torch import build, intra, intra_cuda, mc_cuda
+from hevc_tpu_torch.intra_cases import random_case
 from hevc_tpu_torch.mc import mc_plain, resid_add_plain
 from hevc_tpu_torch.pack import DUMP, DUMP16, PAD_REF
 from hevc_tpu_torch.tables import tables_from_reference
@@ -169,11 +177,36 @@ def _port_resid(canvas, fields, pools, bd):
                            [t(p) for p in pools], bd).numpy()
 
 
-@pytest.fixture
-def card():
+@pytest.fixture(scope="session")
+def card_memory():
+    """(free, total, bytes torch holds) of card 0 when the session's first
+    card test starts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    free, total = torch.cuda.mem_get_info(0)
+    return free, total, torch.cuda.memory_reserved(0)
+
+
+@pytest.fixture
+def card(card_memory):
+    """Card 0, once it is clear that no other CUDA client of this process
+    (JAX's, started by tests/conftest.py without JAX_PLATFORMS=cpu) holds
+    most of it: under half the card free while torch holds nothing fails
+    every card test."""
+    free, total, held = card_memory
+    if held == 0 and free < total / 2:
+        pytest.fail(f"another CUDA client holds the card: {free / 2**30:.2f} "
+                    f"of {total / 2**30:.2f} GiB free before torch allocated "
+                    "anything; run with JAX_PLATFORMS=cpu")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_the_card_is_not_shared_with_another_cuda_client(card, card_memory):
+    free, total, held = card_memory
+    print(f"card 0 at the first card test: {free} of {total} bytes free "
+          f"({free / total:.3f}), {held} held by torch")
+    assert free >= total / 2
 
 
 @pytest.mark.cuda
@@ -801,3 +834,87 @@ def test_bench_720p_config_on_card(card):
     assert extra["device_idle_share_720p"] < 1
     assert extra["stageB_replays_720p"] == 2 * (16 + 1)
     assert extra["section_s"]["stages 720p"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the intra wavefront kernel (csrc/intra.cu)
+# ---------------------------------------------------------------------------
+
+def _on(case, dev):
+    canvas, scal, avail, resids, bd = case
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(canvas), [t(s) for s in scal], [t(a) for a in avail],
+            [t(r) for r in resids], bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_intra_kernel_matches_plain_on_random_cases_on_card(card, seed):
+    """The seeded random cases (every mode of every size, filters on and
+    off, bit depths 8 and 10, partial availability, padding records, empty
+    chunks): one launch per live chunk, bit for bit the plain version."""
+    case = random_case(seed)
+    counts = intra.chunk_counts(case[1])
+    canvas, scal, avail, resids, bd = _on(case, card)
+    tabs = tables_from_reference(card)
+    before = build.launches["intra"]
+    got = intra_cuda.reconstruct_wavefront(canvas.clone(), scal, avail,
+                                           resids, bd, tabs, counts)
+    torch.cuda.synchronize()
+    assert build.launches["intra"] - before == intra_cuda.live_chunks(counts)
+    want = intra.reconstruct_wavefront(canvas.clone(), scal, avail, resids,
+                                       bd, tabs, counts)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_intra_wrapper_raises_when_the_build_fails_on_card(card,
+                                                           monkeypatch):
+    def failed():
+        raise RuntimeError("nvcc failed (1)")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(build, "load", failed)
+    monkeypatch.setattr(intra, "reconstruct_wavefront", plain)
+    case = random_case(0)
+    canvas, scal, avail, resids, bd = _on(case, card)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        intra_cuda.reconstruct_wavefront(
+            canvas, scal, avail, resids, bd, tables_from_reference(card),
+            intra.chunk_counts(case[1]))
+
+
+@pytest.mark.cuda
+def test_decoder_launches_intra_once_per_live_chunk_on_card(card):
+    """An I, P, P stream through ``TorchDecoder``: the intra kernel
+    launches once per live chunk of every picture's pack, every MD5
+    correct."""
+    from hevc_tpu_torch import pipeline
+    from hevc_tpu_torch.decoder import TorchDecoder
+    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
+    from hevc_tpu_torch.encoder.generate import synth_frame
+    enc = IntraEncoder(EncoderConfig(
+        width=192, height=128, qp=30, gop="ipp", wpp=True, deblocking=True,
+        sao=True, log2_ctb_size=5, log2_cu_size=5, search_range=3, seed=1))
+    data = b"".join(enc.encode_frame(synth_frame("gradient", 192, 128, t,
+                                                 seed=3)) for t in range(3))
+    live = []
+    orig = pipeline.frame_program
+
+    def program(meta, meta16, *rest):
+        S = dict(rest[-2])
+        scal = pipeline.host_views(np.asarray(meta, np.int32), meta16, S)[0]
+        live.append(intra_cuda.live_chunks(intra.chunk_counts(scal)))
+        return orig(meta, meta16, *rest)
+
+    pipeline.frame_program = program
+    before = build.launches["intra"]
+    try:
+        frames = TorchDecoder(check_md5=True, device=card).decode_bytes(data)
+    finally:
+        pipeline.frame_program = orig
+    assert [f.md5_ok for f in frames] == [True] * 3
+    assert live[0] > 0
+    assert build.launches["intra"] - before == sum(live), live
