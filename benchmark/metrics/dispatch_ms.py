@@ -1,0 +1,7 @@
+"""``dispatch_ms``: ms a picture in the frame program's enqueue, from the
+program's spans."""
+from benchmark.metrics._spans import ms_per_picture
+
+
+def read(ctx):
+    return ms_per_picture(ctx, ('device_dispatch',))
