@@ -820,7 +820,8 @@ def phase_format(name, dev, smi, decoder, pipeline, trace, build):
     log(f"format {name}: {n_frames / wall} fps (TorchDecoder.decode_bytes "
         f"and the MD5 fetch, {wall:.3f} s) ({smi}); trace split, "
         "ms/frame: " + ", ".join(f"{k} {v['total_s'] * 1e3 / n_frames}"
-                                 for k, v in sorted(split.items())))
+                                 for k, v in sorted(split.items())
+                                 if "total_s" in v))
     log(f"format {name}, captured run, stages synchronised, ms per call: "
         f"{cap.report()} ({smi})")
     return seen
@@ -1034,7 +1035,7 @@ def phase_shvc(dev, smi, cli, decoder, pipeline, trace, build):
         f"({wall:.3f} s) ({smi})")
     log("SHVC trace split of the counted run, ms per access unit: " + ", "
         .join(f"{k} {v['total_s'] * 1e3 / n}" for k, v in sorted(
-            split.items())))
+            split.items()) if "total_s" in v))
     log(f"SHVC captured run, stages synchronised, ms per call: "
         f"{cap.report()} ({smi})")
 
@@ -1839,7 +1840,7 @@ def run(smi, dev):
         f"(incl. MD5 fetch), {out.strip().splitlines()[-1]}")
     log("trace split of the counted run, ms/frame: " + ", ".join(
         f"{k} {v['total_s'] * 1e3 / FRAMES}"
-        for k, v in sorted(split.items())))
+        for k, v in sorted(split.items()) if "total_s" in v))
     log(f"inline decode, stages synchronised, ms per call: {cap.report()}")
     log(f"1080p I picture (POC 0), card synchronised: frame program "
         f"{cap.ms['frame_program'][0]} ms, of which the intra wavefront "

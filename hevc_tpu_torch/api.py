@@ -24,6 +24,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from . import log as ohlog
+from . import trace
 from .bitstream import nal as nalmod
 from .decoder.core import DecodedFrame, Decoder
 
@@ -131,13 +132,14 @@ class OHHandle:
         request).  Returns (got_picture, OHFrame|None) — the highest
         decoded layer's picture, display (POC) order."""
         assert self._started, "call start() first"
-        if packet:
-            self._dec.next_pts = pts
-            for n in nalmod.split_annexb(packet):
-                self._dec.decode_nal(n)
-        else:
-            self._dec.flush()
-        self._collect()
+        with trace.span("api_decode", pic=pts):
+            if packet:
+                self._dec.next_pts = pts
+                for n in nalmod.split_annexb(packet):
+                    self._dec.decode_nal(n)
+            else:
+                self._dec.flush()
+            self._collect()
         if self._out_fifo:
             return True, self._out_fifo.pop(0)
         return False, None

@@ -434,7 +434,8 @@ def bench_e2e(path, dev, runs=RUNS):
         dt = time.perf_counter() - t0
         fps.append(n / dt)
         splits.append({k: v["total_s"] * 1e3 / n
-                       for k, v in trace.report().items()})
+                       for k, v in trace.report().items()
+                       if "total_s" in v})
     k = fps.index(_median(fps))
     return {"frames": n, "fps": fps[k], "runs": fps, "split": splits[k]}
 

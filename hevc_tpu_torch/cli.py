@@ -5,11 +5,18 @@ NumPy backend, ``-b``), optionally writes the raw YUV, checks the SEI
 decoded-picture hashes and prints ``frame= N fps= F time= T``.
 
 Usage: python -m hevc_tpu_torch.cli -i in.265 [-o out.yuv] [-c]
-       [-b torch|inline|plan] [--device cuda]
+       [-b torch|inline|plan] [--device cuda] [--trace-out t.json]
+
+``--trace-out`` decodes access unit by access unit, as the API does (each
+unit's index is its pictures' id), under ``torch.profiler`` (the CPU, and
+CUDA on a card) with the program's timeline on, and writes one chrome
+trace: the profiler's events and kernels with the program's spans of
+every thread (``trace.export_chrome``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -36,6 +43,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of stage B (cuda, cuda:N; cpu runs "
                          "the plain PyTorch versions of the kernels)")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write a chrome trace of the decode: the "
+                         "profiler's events and kernels beside the "
+                         "program's spans of every thread")
     args = ap.parse_args(argv)
 
     from .decoder import Decoder
@@ -46,7 +57,10 @@ def main(argv=None):
     dec = Decoder(check_md5=not args.no_md5, recon_backend=args.backend,
                   target_layer=args.layer,
                   temporal_layer=args.temporal_layer, device=args.device)
-    frames = dec.decode_bytes(data)
+    if args.trace_out:
+        frames = _traced_decode(dec, data, args.trace_out)
+    else:
+        frames = dec.decode_bytes(data)
     top = max((f.layer for f in frames), default=0)
     frames = [f for f in frames if f.layer == top]
     if args.frames:
@@ -73,6 +87,44 @@ def main(argv=None):
     fps = n / dt if dt > 0 else 0.0
     print(f"frame= {n} fps= {fps:.1f} time= {dt:.2f}")
     return 1 if bad else 0
+
+
+def _traced_decode(dec, data, path):
+    """Decode ``data`` one access unit at a time (pts = its index), each
+    picture fetched to the host, under ``torch.profiler`` with the
+    timeline on; write the merged chrome trace to ``path``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import trace
+    from .bitstream import nal as nalmod
+    from .io.parser import split_access_units
+    cuda = getattr(dec, "device", None) is not None \
+        and dec.device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    trace.timeline_start()
+    try:
+        with profile(activities=acts) as prof:
+            for pts, au in enumerate(split_access_units(data)):
+                dec.next_pts = pts
+                for n in nalmod.split_annexb(au):
+                    dec.decode_nal(n)
+            dec.flush()
+            frames, dec.frames = dec.frames, []
+            for f in frames:
+                f.planes[0]  # the fetch, inside the trace
+            if cuda:
+                torch.cuda.synchronize(dec.device)
+    finally:
+        trace.timeline_stop()
+        dec.close()
+    raw = path + ".profiler.json"
+    prof.export_chrome_trace(raw)
+    try:
+        trace.export_chrome(path, raw)
+    finally:
+        os.remove(raw)
+    return frames
 
 
 if __name__ == "__main__":

@@ -1339,6 +1339,16 @@ class _LayerCtx:
         self.skip_cur_pic = False
 
 
+def _cuda_mallocs(device):
+    """The caching allocator's count of ``cudaMalloc`` calls so far on
+    ``device``, or None off CUDA."""
+    if device is None or device.type != "cuda":
+        return None
+    import torch
+    return torch.cuda.memory_stats_as_nested_dict(device)[
+        "segment"]["all"]["allocated"]
+
+
 class Decoder:
     """Stream-level decoder: feed Annex-B bytes, get DecodedFrames.
 
@@ -1407,20 +1417,25 @@ class Decoder:
                 concurrent.futures.ThreadPoolExecutor(max_workers=1)
         pool.submit(lp._mat)
 
-    def _pack_submit(self, fn, *args):
+    def _pack_submit(self, fn, *args, pic=None):
         """Run fn on the ordered pack worker: a single-thread FIFO
         executor that owns all dpb_dev state and the device dispatch.
         Stage A of frame n+1 (native, GIL-released) overlaps pack +
         dispatch of frame n — the host analogue of the reference's
         frame-thread pipelining (pthread_frame.c:484).  Set
-        HEVC_TPU_ASYNC_PACK=0 to run inline."""
+        HEVC_TPU_ASYNC_PACK=0 to run inline.  ``pic`` is the picture id
+        of the job's spans; the future carries the job's
+        ``trace.Handoff`` as ``handoff``."""
+        from .. import trace
+        h = trace.handoff(pic)
         if os.environ.get("HEVC_TPU_ASYNC_PACK", "1") == "0":
             import concurrent.futures
             f = concurrent.futures.Future()
             try:
-                f.set_result(fn(*args))
+                f.set_result(self._pack_job(h, fn, args))
             except BaseException as e:  # noqa: BLE001
                 f.set_exception(e)
+            f.handoff = h
             return f
         import concurrent.futures
         pool = getattr(self, "_pack_pool", None)
@@ -1428,9 +1443,27 @@ class Decoder:
             pool = self._pack_pool = \
                 concurrent.futures.ThreadPoolExecutor(max_workers=1)
             self._pack_futs = []
-        fut = pool.submit(fn, *args)
+        fut = pool.submit(self._pack_job, h, fn, args)
+        fut.handoff = h
         self._pack_futs.append(fut)
         return fut
+
+    def _pack_job(self, h, fn, args):
+        """One pack-worker job: its wait in the queue (``pack_queue``), its
+        work (``pack_worker``) and the ``cudaMalloc`` calls the caching
+        allocator made meanwhile (``device_allocs``, on CUDA)."""
+        from .. import trace
+        trace.waited("pack_queue", h)
+        with trace.span("pack_worker", pic=h.pic, parent=h.parent,
+                        sid=h.id):
+            dev = getattr(self, "device", None)
+            before = _cuda_mallocs(dev)
+            try:
+                return fn(*args)
+            finally:
+                if before is not None:
+                    trace.count("device_allocs",
+                                _cuda_mallocs(dev) - before)
 
     def close(self) -> None:
         """Wait for the pack worker's jobs and the prefetches, then shut
@@ -1629,7 +1662,7 @@ class Decoder:
             from ..pipeline import LazyPlanes, inter_layer_ref
             il = LazyPlanes(self._pack_submit(
                 inter_layer_ref, bl.dpb_dev, lay.dpb_dev, bl_poc, cgs, sps,
-                bl_bd))
+                bl_bd, pic=lay.cur_pts))
         else:
             if cgs is not None:
                 from ..ops.cgs import color_map_frame
@@ -1722,7 +1755,7 @@ class Decoder:
                 lay.cur_poc = 0
                 lay.dpb.clear()
                 if self.recon_backend == "torch":
-                    self._pack_submit(lay.dpb_dev.clear)
+                    self._pack_submit(lay.dpb_dev.clear, pic=lay.cur_pts)
             else:
                 lay.cur_poc = poc
                 # RPS-driven DPB: pictures in no RPS bucket are no
@@ -1743,7 +1776,8 @@ class Decoder:
                     dd = lay.dpb_dev
                     self._pack_submit(
                         lambda dd=dd, ev=evict: [dd.pop(p, None)
-                                                 for p in ev])
+                                                 for p in ev],
+                        pic=lay.cur_pts)
             lay.cur_pic.output_flag = sh.pic_output_flag
             if lid > 0 and sh.active_num_ilr > 0:
                 self._start_el_picture(lay, sps, sh, nal.type)
@@ -1848,7 +1882,7 @@ class Decoder:
                     lt0, lt1, tc, lay.cur_poc, chunk_slot=slot,
                     n_threads=self._batch_threads, defer=True))
             else:
-                with trace.span("stage_a_native"):
+                with trace.span("stage_a_native", pic=lay.cur_pts):
                     nat(lay.cur_pic, sps, pps, sh, init_type, nal.rbsp,
                         seg_starts, seg_slice_idx, ref_list,
                         ref_list_l1, lt0, lt1, tc, lay.cur_poc)
@@ -1867,7 +1901,7 @@ class Decoder:
                 sd.wpp_saved = dep_state[3] if len(dep_state) > 3 \
                     else None
             from .. import trace
-            with trace.span("stage_a_python"):
+            with trace.span("stage_a_python", pic=lay.cur_pts):
                 sd.decode_ctus()
             if pps.dependent_slice_segments_enabled:
                 lay.dep_state = (sd.cm.save(),
@@ -2026,7 +2060,7 @@ class Decoder:
                     # frame program serve every picture
                     from .. import trace
                     from ..native import plan_to_records, sao_map_to_arrays
-                    with trace.span("plan_to_records"):
+                    with trace.span("stage_a_python", pic=lay.cur_pts):
                         pic.native_chunks = [plan_to_records(plan)]
                     if getattr(pic, "sao_map", None):
                         pic.sao_arrays = sao_map_to_arrays(pic.sao_map,
@@ -2037,7 +2071,8 @@ class Decoder:
                 # the device, the output is fetched lazily
                 from ..pipeline import finish_frame
                 dev_out = self._pack_submit(finish_frame, pic, lay,
-                                            lay.cur_poc, self.device)
+                                            lay.cur_poc, self.device,
+                                            pic=lay.cur_pts)
             else:
                 execute_plan_numpy(pic, plan)
                 if self.plan_hook is not None:
@@ -2144,10 +2179,7 @@ class Decoder:
 
                     def _eval(lp=lp, expect=frame.sei_hash.md5,
                               bd=pic.sps.bit_depth_luma):
-                        from .. import trace
-                        with trace.span("md5_fetch"):
-                            planes = list(lp)
-                        return picture_md5(planes, bd) == expect
+                        return picture_md5(list(lp), bd) == expect
                     frame._md5_eval = _eval
                     self._prefetch(lp)
                 else:

@@ -19,7 +19,7 @@ import torch
 
 from . import build
 from .mc import C_CX, C_CY, MC_COLS, mc_plain, resid_add_plain
-from .tables import tables_from_reference
+from .tables import tables_from_reference, upload
 
 SUB = 16          # a PU is filtered in sub-blocks of at most SUB x SUB
 MAX_GROUPS = 256  # group table of one launch (McParams in csrc/mc.cu)
@@ -168,7 +168,7 @@ def mc(canvas, refs_l, refs_c, groups, bd):
     on the int32 canvas: one kernel launch for the whole picture."""
     table = mc_table(groups, canvas.shape)
     dev = canvas.device
-    rows = torch.from_numpy(table.rows).to(dev)
+    rows = upload(table.rows, dev)
     if dev.type == "cpu":
         return mc_plain(canvas, refs_l, refs_c,
                         table_groups(table, rows.to(torch.int32)), bd,

@@ -27,7 +27,8 @@ from .intra import chunk_counts
 from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF, pack_frame
 from .recon import residuals
-from .tables import dpb_from_numpy, pad_refs, tables_from_reference
+from .tables import (dpb_from_numpy, pad_refs, tables_from_reference,
+                     upload)
 
 I32 = torch.int32
 
@@ -47,10 +48,6 @@ def _check_spec(S):
     for key, why in _UNPORTED:
         if S.get(key):
             raise NotImplementedError(f"hevc_tpu_torch: {why}")
-
-
-def _upload(a, device):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def scatter_levels(idx, val, total):
@@ -119,16 +116,17 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     scal_np, _rmeta, _fields, mc_groups = host_views(meta, meta16, S)
     counts = chunk_counts(scal_np)
 
-    meta_d = _upload(meta, device)
-    meta8_d = _upload(meta8, device)
-    avail_d = _upload(avail_u8, device)
-    coo_n, total = S["coo"]
-    if coo_n:
-        # sparse upload: the dense pool is rebuilt on the device
-        levels_d = scatter_levels(_upload(levels16[0], device),
-                                  _upload(levels16[1], device), total)
-    else:
-        levels_d = _upload(levels16, device)
+    with trace.span("dispatch.upload"):
+        meta_d = upload(meta, device)
+        meta8_d = upload(meta8, device)
+        avail_d = upload(avail_u8, device)
+        coo_n, total = S["coo"]
+        if coo_n:
+            # sparse upload: the dense pool is rebuilt on the device
+            levels_d = scatter_levels(upload(levels16[0], device),
+                                      upload(levels16[1], device), total)
+        else:
+            levels_d = upload(levels16, device)
 
     pos = 0
 
@@ -187,45 +185,53 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
                       .to(I32))
         lpos += n
 
-    bank = [torch.as_tensor(b, device=device).to(I32) for b in scale_bank]
-    resids = residuals(levels, rmeta, bd, bank, tables)
+    with trace.span("dispatch.residuals"):
+        bank = [torch.as_tensor(b, device=device).to(I32)
+                for b in scale_bank]
+        resids = residuals(levels, rmeta, bd, bank, tables)
 
-    if isinstance(canvas0, tuple):
-        canvas = torch.zeros(canvas0, dtype=I32, device=device)
-    else:
-        canvas = _upload(canvas0, device).to(I32)
-    mono = S["mono"]
-    if S["n_refs"]:
-        refs_l = torch.stack(list(refs_y))
-        # 4:0:0 has no chroma MC rows: the luma stack stands in for the
-        # chroma operand, which is never read
-        refs_c = refs_l if mono else torch.stack(list(refs_cb)
-                                                 + list(refs_cr))
-        mc_cuda.mc(canvas, refs_l, refs_c, mc_groups, bd)
-    mc_cuda.resid_add(canvas, resid_fields, resids, bd)
-    out = reconstruct_wavefront(canvas, scal, avail, resids, bd, tables,
-                                counts)
+    with trace.span("dispatch.mc"):
+        if isinstance(canvas0, tuple):
+            canvas = torch.zeros(canvas0, dtype=I32, device=device)
+        else:
+            canvas = upload(canvas0, device).to(I32)
+        mono = S["mono"]
+        if S["n_refs"]:
+            refs_l = torch.stack(list(refs_y))
+            # 4:0:0 has no chroma MC rows: the luma stack stands in for the
+            # chroma operand, which is never read
+            refs_c = refs_l if mono else torch.stack(list(refs_cb)
+                                                     + list(refs_cr))
+            mc_cuda.mc(canvas, refs_l, refs_c, mc_groups, bd)
+        mc_cuda.resid_add(canvas, resid_fields, resids, bd)
+    with trace.span("dispatch.intra"):
+        out = reconstruct_wavefront(canvas, scal, avail, resids, bd, tables,
+                                    counts)
     y, cb, cr = (out[oy:oy + h, ox:ox + w] for oy, ox, h, w in S["regions"])
-    if S["do_deblock"] and mono:
-        y = deblock_luma(y, qp4, bs_v, bs_h, beta_off, tc_off, tables, bd,
-                         nf_y)
-    elif S["do_deblock"]:
-        y, cb, cr = deblock(y, cb, cr, qp4, bs_v, bs_h, beta_off, tc_off,
-                            dboff[2], dboff[3], tables, bd=bd,
-                            sub_w=S["sub_w"], sub_h=S["sub_h"], nf_y=nf_y,
-                            nf_c=nf_c)
+    with trace.span("dispatch.deblock"):
+        if S["do_deblock"] and mono:
+            y = deblock_luma(y, qp4, bs_v, bs_h, beta_off, tc_off, tables,
+                             bd, nf_y)
+        elif S["do_deblock"]:
+            y, cb, cr = deblock(y, cb, cr, qp4, bs_v, bs_h, beta_off,
+                                tc_off, dboff[2], dboff[3], tables, bd=bd,
+                                sub_w=S["sub_w"], sub_h=S["sub_h"],
+                                nf_y=nf_y, nf_c=nf_c)
     planes = [y] if mono else [y, cb, cr]
-    if S["do_sao"]:
-        lg = S["ctb_log2"]
-        for k, p in enumerate(planes):
-            sub = (1, 1) if k == 0 else (S["sub_h"], S["sub_w"])
-            planes[k] = sao_plane(
-                p, sao_t[k], sao_b[k], sao_o[k], sao_e[k],
-                (lg - sub[0].bit_length() + 1, lg - sub[1].bit_length() + 1),
-                bd, edge_flags=sao_flags, nf=nf_y if k == 0 else nf_c)
-    odt = torch.uint8 if bd <= 8 else torch.int16
-    flat = torch.cat([p.to(odt).reshape(-1) for p in planes])
-    return (flat, *pad_refs(planes))
+    with trace.span("dispatch.sao"):
+        if S["do_sao"]:
+            lg = S["ctb_log2"]
+            for k, p in enumerate(planes):
+                sub = (1, 1) if k == 0 else (S["sub_h"], S["sub_w"])
+                planes[k] = sao_plane(
+                    p, sao_t[k], sao_b[k], sao_o[k], sao_e[k],
+                    (lg - sub[0].bit_length() + 1,
+                     lg - sub[1].bit_length() + 1),
+                    bd, edge_flags=sao_flags, nf=nf_y if k == 0 else nf_c)
+    with trace.span("dispatch.output"):
+        odt = torch.uint8 if bd <= 8 else torch.int16
+        flat = torch.cat([p.to(odt).reshape(-1) for p in planes])
+        return (flat, *pad_refs(planes))
 
 
 _FLAT_BANKS = {}
@@ -240,7 +246,7 @@ def _scale_bank_dev(pic, device):
         scaling.__dict__.setdefault("_torch_banks", {})
     got = cache.get(key)
     if got is None:
-        got = cache[key] = tuple(torch.from_numpy(b).to(device)
+        got = cache[key] = tuple(upload(b, device)
                                  for b in N._scale_bank(pic))
     return got
 
@@ -293,6 +299,13 @@ def _fused(dev):
             and isinstance(dev[1][0], tuple))
 
 
+def _job(dev) -> dict:
+    """The picture id and parent of a span about ``dev``'s pack job: that
+    job's span (the future's ``handoff``), or none for a plain value."""
+    h = getattr(dev, "handoff", None)
+    return {} if h is None else {"pic": h.pic, "parent": h.id}
+
+
 class LazyPlanes:
     """List-like deferred fetch of a frame's device planes.
 
@@ -314,7 +327,13 @@ class LazyPlanes:
 
     def _resolved(self):
         dev = self._dev
-        return dev.result() if hasattr(dev, "result") else dev
+        if not hasattr(dev, "result"):
+            return dev
+        if not dev.done():
+            # the caller blocked on the pack worker, apart from the copy
+            with trace.span("output_wait", **_job(dev)):
+                return dev.result()
+        return dev.result()
 
     def device_ready(self):
         """Block until the frame's device work is enqueued and done, moving
@@ -344,9 +363,10 @@ class LazyPlanes:
     def _mat(self):
         with self._lock:
             if self._np is None:
+                job = _job(self._dev)
                 dev = self._resolved()
                 if _fused(dev):
-                    with trace.span("fetch"):
+                    with trace.span("fetch", **job):
                         buf = dev[0].cpu().numpy()
                     if buf.dtype == np.int16:
                         buf = buf.view(np.uint16)
@@ -355,7 +375,7 @@ class LazyPlanes:
                         planes.append(buf[off:off + h * w].reshape(h, w))
                         off += h * w
                 else:
-                    with trace.span("fetch"):
+                    with trace.span("fetch", **job):
                         planes = [d.cpu().numpy() for d in dev]
                 if self._dtype is not None:
                     planes = [p.astype(self._dtype) for p in planes]

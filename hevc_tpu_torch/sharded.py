@@ -44,9 +44,8 @@ from .filters import _chroma_pass, _keep, _luma_pass, _t, sao_plane
 from .intra import chunk_counts
 from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF
-from .pipeline import _upload
 from .recon import residuals
-from .tables import edge_pad, tables_from_reference
+from .tables import edge_pad, tables_from_reference, upload
 
 
 class BandLayout:
@@ -224,7 +223,7 @@ def _filters(layout, ys, cbs, crs, maps, scal, sao, *, bd, ctb_log2, sub_w,
 def _cols(a, k, n, dev):
     """Columns k * n .. (k + 1) * n (axis 1) of a NumPy array, int32 on
     ``dev``."""
-    return _upload(np.asarray(a, np.int32)[:, k * n:(k + 1) * n], dev)
+    return upload(np.asarray(a, np.int32)[:, k * n:(k + 1) * n], dev)
 
 
 def _band_maps(layout, maps, n):
@@ -327,18 +326,18 @@ def band_recon(pf, refs, bd, dev):
     windows [2R, h, w]) or None.  Returns the band's unfiltered (y, cb,
     cr)."""
     tables = tables_from_reference(dev)
-    canvas = _upload(pf.canvas, dev)
-    levels = [_upload(v, dev) for v in pf.levels]
-    rmeta = [_upload(m, dev) for m in pf.rmeta]
-    bank = [_upload(b, dev) for b in pf.scale_bank]
+    canvas = upload(pf.canvas, dev)
+    levels = [upload(v, dev) for v in pf.levels]
+    rmeta = [upload(m, dev) for m in pf.rmeta]
+    bank = [upload(b, dev) for b in pf.scale_bank]
     resids = residuals(levels, rmeta, bd, bank, tables)
     if pf.mc_groups:
         mc_cuda.mc(canvas, refs[0], refs[1], mc_rows(pf.mc_groups), bd)
-    mc_cuda.resid_add(canvas, [_upload(g, dev) for g in pf.resid_groups],
+    mc_cuda.resid_add(canvas, [upload(g, dev) for g in pf.resid_groups],
                       resids, bd)
     out = reconstruct_wavefront(
-        canvas, [_upload(s, dev) for s in pf.scal],
-        [_upload(a, dev) for a in pf.avail], resids, bd, tables,
+        canvas, [upload(s, dev) for s in pf.scal],
+        [upload(a, dev) for a in pf.avail], resids, bd, tables,
         chunk_counts(pf.scal))
     return [out[oy:oy + h, ox:ox + w]
             for oy, ox, h, w in (pf.region[p] for p in range(3))]

@@ -12,6 +12,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import trace
 from .ops import deblock as D
 from .ops import mc as M
 from .ops import reference as R
@@ -94,9 +95,17 @@ def pad_refs(planes) -> tuple:
     return pads
 
 
+def upload(a, device) -> torch.Tensor:
+    """A host array copied to ``device``, its bytes counted as
+    ``h2d_bytes``."""
+    a = np.ascontiguousarray(a)
+    trace.count("h2d_bytes", a.nbytes)
+    return torch.from_numpy(a).to(device)
+
+
 def dpb_from_numpy(planes, device) -> tuple:
     """Host planes -> the port's reference planes on ``device`` (the mirror
     of ``pipeline._pad_np`` with ``aligned=False``; ``pipeline.pad_dev_refs``
     is its device-to-device twin)."""
-    return pad_refs([torch.from_numpy(np.asarray(p, np.int32)).to(device)
+    return pad_refs([upload(np.asarray(p, np.int32), device)
                      for p in planes])
