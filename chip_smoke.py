@@ -11,8 +11,10 @@
 3. holds each kernel against its plain PyTorch version, bit for bit
    (tolerance 0), on random cases of every MC flavour and residual class,
    on a picture's mixed MC groups and all four residual classes in one
-   launch each, and the intra kernel on the six seeded chunk tables of
-   ``hevc_tpu_torch.intra_cases`` (one launch per live chunk);
+   launch each, the intra kernel on the six seeded chunk tables of
+   ``hevc_tpu_torch.intra_cases`` (one launch per live chunk), and the
+   loop filter kernels (deblocking, two launches; SAO, one) on two draws
+   of each picture of ``hevc_tpu_torch.filter_cases``;
 4. decodes a 96x80 IPP stream on the card and compares it with the
    port's inline NumPy decoder, then decodes a 4-frame 1920x1080 IPP/WPP
    stream (the headline stream of ``bench.py``, cut to 4 frames and
@@ -20,13 +22,18 @@
    kernel's inputs) and once counted, through ``hevc_tpu_torch.cli.main``,
    and checks every frame's SEI MD5, that MC launched once and the
    residual add at most once per inter picture on that run, and that the
-   outputs lived on the card, and that the intra kernel launched once per
-   live chunk of every picture; then holds both inter kernels against
+   outputs lived on the card, that the intra kernel launched once per
+   live chunk of every picture and the loop filter kernels three times a
+   picture; then holds both inter kernels against
    their plain versions on the captured rows of a real 1080p P frame and
    the intra kernel on the captured I picture (``intra_place``: error 0,
    its time beside the plain version's and its bound) and times them
    there with CUDA events and ``torch.profiler`` (after the counted run,
-   which no profiler session may precede: see PERF.md).  The 1080p
+   which no profiler session may precede: see PERF.md); then the loop
+   filter kernels on 1080p pictures of the benchmark's banks
+   (``phase_loop_filter``: an IDR, a P and a leaf B of ``ra``, an IDR of
+   ``intra``), bit for bit, timed beside the plain versions, the
+   wrappers' host cost and the bound.  The 1080p
    streams are encoded once into ``.bench/`` by worker processes, one a
    stream, that start with the script and are done before the first
    1080p decode;
@@ -157,7 +164,7 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 
 from hevc_tpu_torch.bounds import (HBM_BYTES_S, bound_ms, intra_work,
-                                   mc_work, resid_work)
+                                   loop_filter_work, mc_work, resid_work)
 from hevc_tpu_torch.capture import Capture, intra_args, kernel_errors
 from hevc_tpu_torch.device import cuda_ms, profiler_ms
 
@@ -178,6 +185,12 @@ PROFILE_REPLAYS = []
 FLOOR = []
 # every intra kernel check's (place, error): all must be 0 (intra_place)
 INTRA_ERRORS = []
+# every loop filter check's (place, error): all must be 0
+LOOP_FILTER_ERRORS = []
+# (place, the loop filter kernels' launches of one picture): traced at the
+# end, every kernel of the call summed
+PROFILE_LOOP_FILTER = []
+BANKS = os.path.join(ROOT, "benchmark", "data", "main1080")
 CACHE = os.path.join(ROOT, ".bench")
 W, H, QP, FRAMES = 1920, 1080, 30, 4
 STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_{FRAMES}f.265")
@@ -526,13 +539,29 @@ def phase_random_kernels(dev):
         assert err == 0, f"intra_chunk_kernel != plain on random case {seed}"
         n_live += live
     INTRA_ERRORS.append(("random cases", 0))
+    from hevc_tpu_torch import filter_cases
+    n_lf = 0
+    for name in sorted(filter_cases.CASES):
+        for seed in (0, 1):
+            case = filter_cases.make(name, seed)
+            err, launches, kept = filter_cases.kernel_errors(case, dev)
+            assert err == 0 and kept, \
+                f"loop filter kernels != plain on {name}, seed {seed} " \
+                f"(error {err}, samples outside the planes kept: {kept})"
+            assert launches == 2 * case["deblock"] + case["sao"], launches
+            n_lf += launches
+    LOOP_FILTER_ERRORS.append(("random cases", 0))
     torch.cuda.synchronize()
     log(f"random kernel cases: {len(MC_CASES)} MC flavours, their mixed "
         "groups in one launch, and 4 residual classes alone and together "
         "at 8 and 10 bit, bit-exact; the intra kernel on 6 random cases "
         "(every mode of every size, filters on and off, 8 and 10 bit, "
         f"partial availability, padding, empty chunks), {n_live} launches, "
-        "bit-exact")
+        "bit-exact; the loop filter kernels on "
+        f"{2 * len(filter_cases.CASES)} random pictures (4:0:0 to 4:4:4, 8 "
+        "to 16 bit, per-slice maps and SAO edge flags, nf maps, deblocking "
+        f"or SAO alone, sizes off the 8-grid and the CTB), {n_lf} launches, "
+        "bit-exact, every sample outside the planes kept")
 
 
 def intra_records(args):
@@ -664,6 +693,76 @@ def phase_real_kernels(cap, dev, smi):
             "intra": intra}
 
 
+def phase_loop_filter(dev, smi):
+    """The loop filter kernels on 1080p pictures of the benchmark's banks:
+    the first access units of each bank's first segment decoded with the
+    wrappers' inputs captured (``capture.captured_filters``), then on an
+    IDR, a P and a leaf B of ``ra`` and the IDR of ``intra``, bit for bit
+    against the plain versions on the card (tolerance 0); per picture the
+    three launches' ms by CUDA events, each call deblocking a fresh copy of
+    the captured planes (deblocking writes in place), less the copies' own
+    ms; the plain versions' ms, the wrappers' host us a picture
+    (``probes.host_us``, less the copies') and the bound
+    (``bounds.loop_filter_work`` over 3.35 TB/s); the launches are traced
+    at the end.  Returns the RA P picture's (error, ms, plain ms, bound)
+    for the kernel table."""
+    import torch
+    from hevc_tpu_torch import filters_cuda, probes
+    from hevc_tpu_torch.capture import (bank_prefix, captured_filters,
+                                        loop_filter_errors, pick_picture)
+    rows = {}
+    for traffic, n_aus, kinds in (("ra", 5, "IPB"), ("intra", 1, "I")):
+        calls = captured_filters(
+            bank_prefix(os.path.join(BANKS, traffic), n_aus), dev)
+        for kind in kinds:
+            call = pick_picture(calls, kind)
+            label = f"{traffic} {kind} POC {call['at'][1]}"
+            errs = loop_filter_errors(call)
+            err = max(errs.values())
+            assert errs == {"deblock_planes": 0, "sao_planes": 0}, \
+                f"loop filter kernels != plain on {label}: {errs}"
+            LOOP_FILTER_ERRORS.append((label, err))
+            (dplanes, *da), dk = call["deblock_planes"]
+            (splanes, *sa), sk = call["sao_planes"]
+            work = [p.clone() for p in dplanes]
+
+            def fresh(work=work, dplanes=dplanes):
+                for w, p in zip(work, dplanes):
+                    w.copy_(p)
+
+            def kernels(work=work, da=da, dk=dk, splanes=splanes, sa=sa,
+                        sk=sk, fresh=fresh):
+                fresh()
+                filters_cuda.deblock_planes(work, *da, **dk)
+                filters_cuda.sao_planes(splanes, *sa, **sk)
+
+            def plain(dplanes=dplanes, da=da, dk=dk, splanes=splanes, sa=sa,
+                      sk=sk):
+                filters_cuda.deblock_plain(dplanes, *da, **dk)
+                filters_cuda.sao_plain(splanes, *sa, **sk)
+
+            ms = cuda_ms(kernels, iters=20, warmup=3) \
+                - cuda_ms(fresh, iters=20, warmup=3)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            host = probes.host_us(kernels, calls=200) \
+                - probes.host_us(fresh, calls=200)
+            PROFILE_LOOP_FILTER.append((label, kernels))
+            qp4, sao_t, nf4 = da[0], sa[0], da[10]
+            n_bytes = sum(loop_filter_work(
+                [tuple(p.shape) for p in dplanes], *qp4.shape,
+                *sao_t.shape[1:], True, True, da[3].dim() == 2,
+                nf4 is not None).values())
+            bound = bound_ms(n_bytes, 0)
+            rows[label] = (err, ms, plain_ms, bound)
+            log(f"loop filter, {label} (1080p {len(dplanes)} planes): "
+                f"kernels == plain (error 0); 3 launches {ms} ms by CUDA "
+                f"events, plain {plain_ms} ms ({plain_ms / ms:.0f}x), "
+                f"wrappers' host {host} us a picture; bound {bound[0]} ms "
+                f"({bound[1]}, {n_bytes} B; kernels at {bound[0] / ms:.3f} "
+                f"of it) ({smi})")
+    return next(v for k, v in rows.items() if k.startswith("ra P"))
+
+
 def phase_bench(dev, smi):
     """The main stream through the stage-B functions of ``python -m
     hevc_tpu_torch.bench`` (``bench.bench_stages``, no new encode): its last
@@ -714,16 +813,22 @@ def counted_decode(decode, dev, pipeline, trace, build):
     and how many (idx, val) pairs its level pool shipped as (0: dense);
     every output and DPB entry must be on ``dev``, and every reference
     must come from the device DPB; the intra kernel must launch once per
-    live chunk of the pictures' packs (``live``).  Returns (decode's
-    result, seen, counts, split, wall seconds)."""
+    live chunk of the pictures' packs (``live``), and the loop filter
+    kernels twice for each pack whose spec deblocks (``deblock``) and once
+    for each that applies SAO (``sao``).  Returns (decode's result, seen,
+    counts, split, wall seconds)."""
     from hevc_tpu_torch import intra, intra_cuda
     from hevc_tpu_torch import native as N
     seen, coo, live = [], [], []
+    filtered = {"deblock": 0, "sao": 0}
     orig_finish, orig_pack = pipeline.finish_frame, pipeline.pack_frame
 
     def pack(pic):
         out = orig_pack(pic)
-        coo.append(dict(out[6])["coo"][0])
+        spec = dict(out[6])
+        coo.append(spec["coo"][0])
+        filtered["deblock"] += 2 * bool(spec["do_deblock"])
+        filtered["sao"] += bool(spec["do_sao"])
         scal = pipeline.host_views(np.asarray(out[0], np.int32), out[1],
                                    dict(out[6]))[0]
         live.append(intra_cuda.live_chunks(intra.chunk_counts(scal)))
@@ -754,7 +859,8 @@ def counted_decode(decode, dev, pipeline, trace, build):
     finally:
         pipeline.finish_frame, pipeline.pack_frame = orig_finish, orig_pack
     wall = time.perf_counter() - t0
-    counts = {k: build.launches[k] for k in ("mc", "resid_add", "intra")}
+    counts = {k: build.launches[k]
+              for k in ("mc", "resid_add", "intra", "deblock", "sao")}
     split = trace.report()
     assert all(s["devices"] == {dev.type} for s in seen), \
         f"outputs or DPB entries not on the card: {seen}"
@@ -763,6 +869,9 @@ def counted_decode(decode, dev, pipeline, trace, build):
     assert counts["intra"] == sum(s["live"] for s in seen) > 0, \
         f"intra launches {counts['intra']} for the live chunks " \
         f"{[s['live'] for s in seen]}"
+    assert {k: counts[k] for k in filtered} == filtered \
+        and filtered["sao"] > 0, \
+        f"loop filter launches {counts} for the packs' filters {filtered}"
     return result, seen, counts, split, wall
 
 
@@ -1183,11 +1292,15 @@ def counted_banded(layout, frames, halo, pipeline, build):
         e1.record()
         e1.synchronize()
         ev_ms.append(e0.elapsed_time(e1))
-    counts = {k: build.launches[k] for k in ("mc", "resid_add", "intra")}
+    counts = {k: build.launches[k]
+              for k in ("mc", "resid_add", "intra", "deblock", "sao")}
     live = sum(intra_cuda.live_chunks(intra.chunk_counts(
         fb["bands"][k].scal)) for fb in frames for k in layout.bands)
     assert counts["intra"] == live > 0, \
         f"banded: intra launches {counts['intra']} for {live} live chunks"
+    # the bands' loop filters are the plain ones (ROADMAP item 22)
+    assert counts["deblock"] == counts["sao"] == 0, \
+        f"banded: loop filter launches {counts}"
     return outs, ev_ms, counts, pipeline.host_refs["count"]
 
 
@@ -1447,7 +1560,8 @@ def phase_frame_axis(dev, smi, decoder, pipeline, build):
     finally:
         pgop_frame.band_step = orig
     wall = time.perf_counter() - t0
-    counts = {k: build.launches[k] for k in ("mc", "resid_add", "intra")}
+    counts = {k: build.launches[k]
+              for k in ("mc", "resid_add", "intra", "deblock", "sao")}
     host = pipeline.host_refs["count"]
     assert batches == [[0], [PGOP_B + 1], list(range(1, PGOP_B + 1))], \
         f"frame axis: batches {batches}"
@@ -1455,6 +1569,10 @@ def phase_frame_axis(dev, smi, decoder, pipeline, build):
     assert counts["mc"] == n - 1 and counts["resid_add"] > 0 \
         and counts["intra"] > 0, \
         f"frame axis: launches {counts} for {n - 1} inter pictures"
+    # each picture runs ``sharded.band_step``, whose loop filters are the
+    # plain ones (ROADMAP item 22)
+    assert counts["deblock"] == counts["sao"] == 0, \
+        f"frame axis: loop filter launches {counts}"
     for f in seq:
         got = [p.cpu().numpy() for p in out[f.poc]]
         assert picture_md5(got, 8) == f.sei_hash.md5, \
@@ -1835,6 +1953,8 @@ def run(smi, dev):
     assert len(seen) == FRAMES and n_inter == FRAMES - 1, seen
     assert counts["mc"] == n_inter and 0 < counts["resid_add"] <= n_inter, \
         f"launches {counts} for {n_inter} inter pictures"
+    assert counts["deblock"] == 2 * FRAMES and counts["sao"] == FRAMES, \
+        f"loop filter launches {counts} for {FRAMES} pictures"
 
     log(f"1080p decode via cli.main: {FRAMES / wall} fps wall "
         f"(incl. MD5 fetch), {out.strip().splitlines()[-1]}")
@@ -1850,6 +1970,7 @@ def run(smi, dev):
         f"chunks {[s['live'] for s in seen]})")
 
     real = phase_real_kernels(cap, dev, smi)
+    loop_filter = phase_loop_filter(dev, smi)
     phase_bench(dev, smi)
     sparse = {STREAM: [s["coo"] for s in seen]}
     for name in FORMATS:
@@ -1882,6 +2003,17 @@ def run(smi, dev):
         max(e for _p, e in INTRA_ERRORS), ms, plain_ms, None, bound))
     log(f"intra kernel held against its plain version (error) at: "
         f"{INTRA_ERRORS}")
+    # the loop filter kernels' row: the main stream's counted launches, the
+    # largest error over every place they were held, the RA P picture's
+    # times and bound
+    _err, ms, plain_ms, bound = loop_filter
+    kernels.append(kernel_row(
+        "loop_filter_kernels", "hevc_tpu_torch/csrc/filters.cu",
+        "hevc_tpu_torch/filters.py deblock, sao_plane",
+        counts["deblock"] + counts["sao"],
+        max(e for _p, e in LOOP_FILTER_ERRORS), ms, plain_ms, None, bound))
+    log(f"loop filter kernels held against their plain versions (error) "
+        f"at: {LOOP_FILTER_ERRORS}")
     for name, row in phase_probes(dev, smi).items():
         kernels.append(kernel_row(
             f"{name}_kernel", "hevc_tpu_torch/csrc/probes.cu",
@@ -1896,6 +2028,12 @@ def run(smi, dev):
                for name, fn in PROFILE_LIBRARY}
     log(f"device ms of the probes' library calls (torch.profiler, every "
         f"kernel of the call): {library} ({smi})")
+    lf = {name: sum(profiler_ms(fn, k, iters=5) or 0
+                    for k in ("deblock_kernel", "sao_kernel"))
+          for name, fn in PROFILE_LOOP_FILTER}
+    log(f"device ms of a picture's three loop filter launches "
+        f"(torch.profiler, the kernels alone, each deblocking a fresh copy "
+        f"of the captured planes): {lf} ({smi})")
     for rep, iters in PROFILE_REPLAYS:
         busy, idle = rep.profiled(iters)
         log(f"bench stage-B trace, {rep.name}: device-busy {busy} ms a replay"

@@ -611,9 +611,8 @@ def link_report(ms, nbytes):
 STAGE_KEYS = {"residuals": "dequant_idct", "mc": "mc",
               "resid_add": "resid_add",
               "reconstruct_wavefront": "intra_wavefront",
-              "intra": "intra_wavefront", "deblock": "deblock",
-              "deblock_luma": "deblock", "sao_plane": "sao_luma",
-              "sao_luma": "sao_luma"}
+              "intra": "intra_wavefront", "deblock_planes": "deblock",
+              "deblock": "deblock", "sao_planes": "sao", "sao": "sao"}
 
 
 def bench_stages(cfg, dev):
@@ -641,9 +640,8 @@ def bench_stages(cfg, dev):
     s = cfg.suffix
     stage_work = stage_b_work(args)
     work = {f"{STAGE_KEYS[n]}_{s}": stage_work[n] for n in (
-        "residuals", "mc", "resid_add", "intra", "deblock", "sao_luma")}
-    y = calls["sao_plane"][1][0]
-    ypix = y.shape[0] * y.shape[1]
+        "residuals", "mc", "resid_add", "intra", "deblock", "sao")}
+    y = calls["sao_planes"][1][0][0]
     bounds = {k: bound_ms(*v) for k, v in work.items()}
     out = {"kernel_max_abs_err": {"mc": mc_err, "resid_add": ra_err},
            "kernel_bytes": {k: v[0] for k, v in work.items()},
@@ -658,17 +656,26 @@ def bench_stages(cfg, dev):
             if name in ("mc", "resid_add", "reconstruct_wavefront"):
                 # the kernels write their canvas in place
                 a = (a[0].clone(),) + tuple(a[1:])
-            us[f"{STAGE_KEYS[name]}_{s}"] = cuda_ms(
-                functools.partial(fn, *a, **k), iters=16) * 1e3
+            if name == "deblock_planes":
+                # deblocking writes its planes in place: each timed call
+                # filters a fresh copy of the recorded ones, less the copy
+                src, planes = a[0], [p.clone() for p in a[0]]
+
+                def fresh(src=src, planes=planes):
+                    for t, p in zip(planes, src):
+                        t.copy_(p)
+
+                def run(fn=fn, planes=planes, a=a, k=k, fresh=fresh):
+                    fresh()
+                    fn(planes, *a[1:], **k)
+                ms = cuda_ms(run, iters=16) - cuda_ms(fresh, iters=16)
+            else:
+                ms = cuda_ms(functools.partial(fn, *a, **k), iters=16)
+            us[f"{STAGE_KEYS[name]}_{s}"] = ms * 1e3
         ew = cuda_ms(lambda: y + 1, iters=16) * 1e3
-        gbps = {"roofline_elementwise": ypix * 4 * 2 / 1e6 / (ew / 1e3),
-                f"deblock_{s}": ypix * 1.5 * 4 * 2 / 1e6
-                / (us[f"deblock_{s}"] / 1e3),
-                f"sao_luma_{s}": ypix * 4 * 2 / 1e6
-                / (us[f"sao_luma_{s}"] / 1e3)}
-        for k in (f"dequant_idct_{s}", f"mc_{s}", f"resid_add_{s}",
-                  f"intra_wavefront_{s}"):
-            gbps[k] = work[k][0] / 1e3 / us[k]
+        gbps = {"roofline_elementwise": y.numel() * 4 * 2 / 1e6 / (ew / 1e3)}
+        for k, v in work.items():
+            gbps[k] = v[0] / 1e3 / us[k]
         out["kernel_us"], out["kernel_gbps"] = us, gbps
     return rep, out
 

@@ -5,12 +5,12 @@ A bound is the larger of two times: the bytes the function must move
 rate, and its operations over the card's peak rate for their type.  The
 rates are NVIDIA's data sheet for the H100 SXM at its full 700 W.
 
-``mc_work`` / ``resid_work`` / ``intra_work`` count the three decoder
-kernels' work on one picture's inputs (what ``chip_smoke.py`` holds each
-kernel's time against); ``stage_b_work`` counts every stage of the frame
-program (``pipeline.frame_program``) from the inputs of one call, the
-kernels' terms through those functions, so the kernels' bounds and the
-stage-B bytes are one count.
+``mc_work`` / ``resid_work`` / ``intra_work`` / ``loop_filter_work`` count
+the decoder kernels' work on one picture's inputs (what ``chip_smoke.py``
+holds each kernel's time against); ``stage_b_work`` counts every stage of
+the frame program (``pipeline.frame_program``) from the inputs of one
+call, the kernels' terms through those functions, so the kernels' bounds
+and the stage-B bytes are one count.
 """
 from __future__ import annotations
 
@@ -120,6 +120,32 @@ def intra_work(scal_host, counts, resids):
     return n_bytes, intra_cuda.live_chunks(counts)
 
 
+def loop_filter_work(shapes, h4, w4, ctb_h, ctb_w, do_deblock=True,
+                     do_sao=True, per_slice=False, nf=False):
+    """{pass: bytes} of the loop filter kernels (``filters_cuda``) on one
+    picture: ``deblock_v``, ``deblock_h`` and ``sao``, 0 for a pass that is
+    off.  Each pass reads the int32 planes of ``shapes`` (luma first) once
+    and the maps it needs, as int32: deblocking the per-4x4 QP map and its
+    boundary strengths, the beta and tc offset maps where the filter
+    parameters are per slice (else four offsets) and the nf map where
+    there is one; SAO seven parameters a CTB a plane, the per-CTB edge
+    flags where per slice, and the nf map.  SAO writes its planes whole; a
+    deblocking pass writes only the samples an edge of the 8-sample grid
+    can change (3 on either side in luma, 6 of every 8; 1 in chroma, 2 of
+    8), counted as samples, not as the sectors that hold them."""
+    frame32 = sum(4 * h * w for h, w in shapes)
+    (hl, wl), chroma = shapes[0], shapes[1:]
+    db_write = 3 * hl * wl + sum(h * w for h, w in chroma)
+    map4 = 4 * h4 * w4
+    ctbs = ctb_h * ctb_w
+    nf_b = map4 if nf else 0
+    deblock = (frame32 + db_write + 2 * map4
+               + (2 * map4 if per_slice else 16) + nf_b) if do_deblock else 0
+    sao = (2 * frame32 + 4 * 7 * ctbs * len(shapes)
+           + (4 * ctbs if per_slice else 0) + nf_b) if do_sao else 0
+    return {"deblock_v": deblock, "deblock_h": deblock, "sao": sao}
+
+
 def stage_b_work(args):
     """{stage: (bytes, int32 operations)} of one call of
     ``pipeline.frame_program(*args)``: what each stage must move on the
@@ -134,10 +160,8 @@ def stage_b_work(args):
       pools (a zero slot each) written;
     - ``mc``, ``resid_add``: ``mc_work`` and ``resid_work``;
     - ``intra``: ``intra_work``'s bytes;
-    - ``deblock``: the planes read and written by each of the two passes,
-      and the QP and boundary-strength maps read;
-    - ``sao``: the planes read and written once, and the parameter maps
-      (``sao_luma`` the luma plane's share);
+    - ``deblock``, ``sao``: ``loop_filter_work``'s two deblocking passes
+      and its SAO pass;
     - ``output``: the planes read once, the fused output and the
       PAD_REF-padded references of the device DPB written once."""
     (meta, meta16, meta8, avail_u8, _levels16, _bank, canvas0, refs_y,
@@ -173,13 +197,11 @@ def stage_b_work(args):
     work["intra"] = (intra_work(scal, chunk_counts(scal), pools)[0], 0)
     regions = S["regions"][:1] if S["mono"] else S["regions"]
     frame32 = sum(4 * h * w for _oy, _ox, h, w in regions)
-    maps4 = S["h4"] * S["w4"]
-    sao_maps = 4 * 7 * S["ctb_h"] * S["ctb_w"]    # per plane
-    _oy, _ox, hl, wl = regions[0]
-    work["deblock"] = (4 * frame32 + 3 * maps4 if S["do_deblock"] else 0, 0)
-    work["sao"] = (2 * frame32 + len(regions) * sao_maps
-                   if S["do_sao"] else 0, 0)
-    work["sao_luma"] = (2 * 4 * hl * wl + sao_maps if S["do_sao"] else 0, 0)
+    lf = loop_filter_work([(h, w) for _oy, _ox, h, w in regions], S["h4"],
+                          S["w4"], S["ctb_h"], S["ctb_w"], S["do_deblock"],
+                          S["do_sao"], S["per_slice"], S["nf"])
+    work["deblock"] = (lf["deblock_v"] + lf["deblock_h"], 0)
+    work["sao"] = (lf["sao"], 0)
     out_b = 1 if S["bd"] <= 8 else 2
     work["output"] = (frame32 + sum(
         h * w * out_b + 4 * (h + 2 * PAD_REF) * (w + 2 * PAD_REF)
@@ -187,7 +209,6 @@ def stage_b_work(args):
     return work
 
 
-# the stages of ``stage_b_work`` that add up to a frame program's bytes
-# (``sao_luma`` is a share of ``sao``)
+# the stages of ``stage_b_work``, which add up to a frame program's bytes
 STAGE_B_TERMS = ("upload", "residuals", "mc", "resid_add", "intra",
                  "deblock", "sao", "output")

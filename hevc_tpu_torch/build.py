@@ -6,11 +6,12 @@ interface, loaded with ctypes.  The library is built at first use and
 rebuilt when a source is newer; it lands in ``build/`` next to this file,
 which ``.gitignore`` lists.
 
-The wrappers (``mc_cuda``, ``intra_cuda``, ``cabac_cuda``, ``probes``)
-share what is kept here: the tensor check, the error check and the launch
-counts.  Each launch of a kernel adds one to ``launches[name]``; nothing
-else touches the counts.  ``launches["tma_encode"]`` counts the tensor maps
-``probes.tensor_map`` encoded, which is host work and no launch.
+The wrappers (``mc_cuda``, ``intra_cuda``, ``filters_cuda``,
+``cabac_cuda``, ``probes``) share what is kept here: the tensor check, the
+error check and the launch counts.  Each launch of a kernel adds one to
+``launches[name]``; nothing else touches the counts.
+``launches["tma_encode"]`` counts the tensor maps ``probes.tensor_map``
+encoded, which is host work and no launch.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ _SO = os.path.join(_OUT, "libhevc_tpu_torch.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-launches = dict.fromkeys(("mc", "resid_add", "intra", "cabac",
-                          "tile_shift", "tma_window", "tma_pipe",
+launches = dict.fromkeys(("mc", "resid_add", "intra", "deblock", "sao",
+                          "cabac", "tile_shift", "tma_window", "tma_pipe",
                           "tma_encode"), 0)
 
 _lock = threading.Lock()
@@ -114,6 +115,11 @@ def load() -> C.CDLL:
             # and the count of its launches, by address
             lib.hevc_intra_launch.argtypes = [p, p, p, i, p, p]
             lib.hevc_intra_launch.restype = i
+            # the loop filters' FilterParams by address, and the stream
+            lib.hevc_deblock_launch.argtypes = [p, p]
+            lib.hevc_deblock_launch.restype = i
+            lib.hevc_sao_launch.argtypes = [p, p]
+            lib.hevc_sao_launch.restype = i
             lib.hevc_launch_floor.argtypes = [p, i, C.c_longlong, p]
             lib.hevc_launch_floor.restype = i
             lib.hevc_cabac_launch.argtypes = [p, i, p, i, i, p, i, p, i, p,

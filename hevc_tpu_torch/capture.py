@@ -1,23 +1,26 @@
 """Captures of what the frame program hands its stages, for the checks and
 timings of ``chip_smoke.py`` and ``python -m hevc_tpu_torch.bench``.
 
-``Capture`` records, over a whole decode, the inputs of the three kernel
-wrappers (MC, residual add, intra wavefront) and the SHVC upsampler and
-times every stage with the card synchronised; ``StageInputs`` records the
-inputs of each stage of one ``frame_program`` call, so that each stage can
-be timed alone; ``kernel_errors`` holds both inter kernels against their
-plain versions on captured inputs.  ``pipeline.py`` imports the stage
-functions by name, so they are patched in its namespace.
+``Capture`` records, over a whole decode, the inputs of the kernel
+wrappers (MC, residual add, intra wavefront, the loop filters) and the
+SHVC upsampler and times every stage with the card synchronised;
+``StageInputs`` records the inputs of each stage of one ``frame_program``
+call, so that each stage can be timed alone; ``kernel_errors`` holds both
+inter kernels against their plain versions on captured inputs and
+``loop_filter_errors`` the loop filter kernels.  ``pipeline.py`` imports
+the stage functions by name, so they are patched in its namespace.
 """
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
-from . import mc_cuda, pipeline, upsample
+from . import filters_cuda, mc_cuda, pipeline, upsample
 from .mc import mc_plain, resid_add_plain
 from .tables import tables_from_reference
 
@@ -26,13 +29,16 @@ class Capture:
     """On an uncounted decode: records the inputs the frame program
     hands each kernel wrapper (and the picture, (layer, POC), each came
     from; the intra wavefront's canvas copied before the kernel writes it
-    in place, its counts as host arrays) and the SHVC upsampler's inputs
+    in place, its counts as host arrays; the loop filters' planes copied,
+    each picture's deblocking and SAO call in ``filters``, a dict with
+    its ``at``, its picture's ``kind`` (``I``, ``P`` or ``B``) and each
+    call's (args, kwargs)) and the SHVC upsampler's inputs
     and outputs, and times each stage of the frame program and of the
     inter-layer build with the device synchronised before and after (ms
     per call)."""
 
     STAGES = ("frame_program", "residuals", "reconstruct_wavefront",
-              "deblock", "deblock_luma", "sao_plane")
+              "deblock_planes", "sao_planes")
     # the inter-layer reference's steps: (module, function, stage name)
     IL = (("upsample", "color_map_frame", "il_color_map"),
           ("upsample", "upsample_frame", "il_upsample"),
@@ -41,6 +47,7 @@ class Capture:
     def __init__(self):
         self.mc, self.resid, self.mc_at, self.resid_at = [], [], [], []
         self.intra, self.intra_at = [], []
+        self.filters = []
         self.upsample = []
         self.at = None
         self.ms = {k: [] for k in self.STAGES + ("mc", "resid_add")
@@ -80,6 +87,9 @@ class Capture:
 
         def finish(pic, lay, poc, device):
             self.at = (lay.layer_id, poc)
+            kind = ("B" if getattr(pic, "ref_list_l1", None) else
+                    "P" if getattr(pic, "ref_list_l0", None) else "I")
+            self.filters.append({"at": self.at, "kind": kind})
             return orig_finish(pic, lay, poc, device)
 
         up_t = timed(orig_il["il_upsample"], "il_upsample")
@@ -100,11 +110,22 @@ class Capture:
             self.intra_at.append(self.at)
             return intra_t(canvas, scal, avail, resids, bd, tables, counts)
 
+        def filter_stage(name):
+            run = timed(orig[name], name)
+
+            def stage(planes, *a, **k):
+                self.filters[-1][name] = (([p.clone() for p in planes],) + a,
+                                          k)
+                return run(planes, *a, **k)
+            return stage
+
         mc_cuda.mc, mc_cuda.resid_add = mc, resid_add
         pipeline.finish_frame = finish
         for k, fn in orig.items():
             setattr(pipeline, k, timed(fn, k))
         pipeline.reconstruct_wavefront = reconstruct_wavefront
+        pipeline.deblock_planes = filter_stage("deblock_planes")
+        pipeline.sao_planes = filter_stage("sao_planes")
         for m, f, k in self.IL:
             setattr(mods[m], f, upsample_frame if k == "il_upsample"
                     else timed(orig_il[k], k))
@@ -149,13 +170,12 @@ class StageInputs:
     """During one ``frame_program`` call: the first call of each stage,
     as {stage: (function, args, kwargs)} with the inputs copied before the
     stage ran (MC and the residual add write their canvas in place).
-    ``sao_plane``'s first call is the luma plane's."""
+    The loop filters' stages take every plane of the picture."""
 
     # (module, function) of each stage, in the frame program's order
     STAGES = ((pipeline, "residuals"), (mc_cuda, "mc"),
               (mc_cuda, "resid_add"), (pipeline, "reconstruct_wavefront"),
-              (pipeline, "deblock"), (pipeline, "deblock_luma"),
-              (pipeline, "sao_plane"))
+              (pipeline, "deblock_planes"), (pipeline, "sao_planes"))
 
     def __init__(self):
         self.calls = {}
@@ -196,3 +216,48 @@ def kernel_errors(mc_args, resid_args):
     want = resid_add_plain(canvas.clone(), fields, pools, bd)
     return mc_err, int((got - want).abs().max())
 
+
+def loop_filter_errors(call):
+    """{stage: largest |kernel - plain|} of one picture's captured loop
+    filter calls (``Capture.filters``' dict), each wrapper against its
+    plain version on copies of the captured planes, on their card."""
+    plain = {"deblock_planes": filters_cuda.deblock_plain,
+             "sao_planes": filters_cuda.sao_plain}
+    errs = {}
+    for name, ref in plain.items():
+        if name not in call:
+            continue
+        (planes, *a), k = call[name]
+        got = getattr(filters_cuda, name)([p.clone() for p in planes], *a,
+                                          **k)
+        want = ref([p.clone() for p in planes], *a, **k)
+        errs[name] = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    return errs
+
+
+def bank_prefix(bank_dir, n):
+    """The first ``n`` access units of the first segment of a benchmark
+    bank (``benchmark/data/<config>/<traffic>``, whose ``bank.json`` lists
+    each segment's access-unit sizes), as one Annex-B stream."""
+    with open(os.path.join(bank_dir, "bank.json")) as f:
+        seg = json.load(f)["segments"][0]
+    with open(os.path.join(bank_dir, seg["file"]), "rb") as f:
+        data = f.read()
+    return data[:sum(seg["au_sizes"][:n])]
+
+
+def captured_filters(data, dev):
+    """``Capture.filters`` of one decode of ``data`` on ``dev``: each
+    picture's loop filter calls, its (layer, POC) and its kind."""
+    from .decoder import TorchDecoder
+    cap = Capture()
+    with cap.installed():
+        TorchDecoder(device=dev).decode_bytes(data)
+    return cap.filters
+
+
+def pick_picture(calls, kind):
+    """The first captured picture of ``kind`` (``I``, ``P`` or ``B``; a B
+    of odd POC, a leaf of a hierarchical GOP of 4)."""
+    return next(c for c in calls if c["kind"] == kind
+                and (kind != "B" or c["at"][1] % 2))

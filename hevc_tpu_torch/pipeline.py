@@ -2,13 +2,13 @@
 
 Port of ``hevc_tpu/tpu/pipeline.py``: ``frame_program`` is
 ``_pipeline_frame`` (residuals -> MC kernel -> residual-add kernel ->
-intra wavefront kernel -> deblocking -> SAO, then edge-padding of the
-planes into the device DPB and one fused output buffer), ``finish_frame`` is
-``finish_frame_pipeline``, ``LazyPlanes`` the deferred host fetch and
-``pad_dev_refs`` seeds a device DPB from device planes (the SHVC
-inter-layer reference).  Reference planes stay on the device between
-frames; only the packed metadata goes up and only the fused output comes
-back.
+intra wavefront kernel -> deblocking kernels -> SAO kernel, then
+edge-padding of the planes into the device DPB and one fused output
+buffer), ``finish_frame`` is ``finish_frame_pipeline``, ``LazyPlanes`` the
+deferred host fetch and ``pad_dev_refs`` seeds a device DPB from device
+planes (the SHVC inter-layer reference).  Reference planes stay on the
+device between frames; only the packed metadata goes up and only the fused
+output comes back.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from . import native as N
 from . import trace
 from . import upsample as UP
 from .coding.picture import crop_conf_win
-from .filters import deblock, deblock_luma, sao_plane
+from .filters_cuda import deblock_planes, sao_planes
 from .intra import chunk_counts
 from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF, pack_frame
@@ -156,19 +156,14 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     qp4, bs_v, bs_h = (take8(h4 * w4, (h4, w4)) for _ in range(3))
     dboff = take(4, (4,))
     beta_off, tc_off = dboff[0], dboff[1]
-    sao_flags = nf_y = nf_c = None
+    sao_flags = nf4 = None
     if S["per_slice"]:
         beta_off = take8(h4 * w4, (h4, w4))
         tc_off = take8(h4 * w4, (h4, w4))
         sao_flags = take8(cth * ctw, (cth, ctw)) & 0xFF
     if S["nf"]:
-        # PCM/TQB loop-filter exemption, per pixel (8.7.2/8.7.3)
-        nf_l = (take8(h4 * w4, (h4, w4)) != 0).repeat_interleave(4, 0) \
-            .repeat_interleave(4, 1)
-        _oy, _ox, hl, wl = S["regions"][0]
-        nf_y = nf_l[:hl, :wl]
-        _oy, _ox, hc, wc = S["regions"][1]
-        nf_c = nf_l[::S["sub_h"], ::S["sub_w"]][:hc, :wc]
+        # PCM/TQB loop-filter exemption, per 4x4 (8.7.2/8.7.3)
+        nf4 = take8(h4 * w4, (h4, w4))
 
     apos = 0
     avail = []
@@ -207,27 +202,20 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
     with trace.span("dispatch.intra"):
         out = reconstruct_wavefront(canvas, scal, avail, resids, bd, tables,
                                     counts)
-    y, cb, cr = (out[oy:oy + h, ox:ox + w] for oy, ox, h, w in S["regions"])
+    regions = S["regions"][:1] if mono else S["regions"]
+    planes = [out[oy:oy + h, ox:ox + w] for oy, ox, h, w in regions]
+    # deblocking filters these views of ``out`` in place (on every device):
+    # from here ``out`` holds the deblocked picture; SAO writes new planes
     with trace.span("dispatch.deblock"):
-        if S["do_deblock"] and mono:
-            y = deblock_luma(y, qp4, bs_v, bs_h, beta_off, tc_off, tables,
-                             bd, nf_y)
-        elif S["do_deblock"]:
-            y, cb, cr = deblock(y, cb, cr, qp4, bs_v, bs_h, beta_off,
-                                tc_off, dboff[2], dboff[3], tables, bd=bd,
-                                sub_w=S["sub_w"], sub_h=S["sub_h"],
-                                nf_y=nf_y, nf_c=nf_c)
-    planes = [y] if mono else [y, cb, cr]
+        if S["do_deblock"]:
+            planes = deblock_planes(planes, qp4, bs_v, bs_h, beta_off,
+                                    tc_off, (dboff[2], dboff[3]), tables, bd,
+                                    S["sub_w"], S["sub_h"], nf4)
     with trace.span("dispatch.sao"):
         if S["do_sao"]:
-            lg = S["ctb_log2"]
-            for k, p in enumerate(planes):
-                sub = (1, 1) if k == 0 else (S["sub_h"], S["sub_w"])
-                planes[k] = sao_plane(
-                    p, sao_t[k], sao_b[k], sao_o[k], sao_e[k],
-                    (lg - sub[0].bit_length() + 1,
-                     lg - sub[1].bit_length() + 1),
-                    bd, edge_flags=sao_flags, nf=nf_y if k == 0 else nf_c)
+            planes = sao_planes(planes, sao_t, sao_b, sao_o, sao_e,
+                                S["ctb_log2"], bd, S["sub_w"], S["sub_h"],
+                                sao_flags, nf4)
     with trace.span("dispatch.output"):
         odt = torch.uint8 if bd <= 8 else torch.int16
         flat = torch.cat([p.to(odt).reshape(-1) for p in planes])

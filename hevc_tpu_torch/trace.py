@@ -6,7 +6,7 @@ Always on, cheap enough to stay compiled in:
 - ``span(name)`` accumulates calls, wall seconds and self seconds (less
   the spans nested in it on its thread) per name (``time.perf_counter``);
 - ``count(name, n)`` accumulates a counter (``h2d_bytes``,
-  ``device_allocs``);
+  ``device_allocs``, ``loop_filter_launches``);
 - ``report()`` returns both, and the wall seconds since ``reset()`` under
   the reserved name ``WALL``.  Accumulation is thread-safe: the caller,
   the pack worker and the fetch worker all record.

@@ -26,8 +26,8 @@ import torch
 import bench as jax_bench
 from hevc_tpu_torch import bench as B
 from hevc_tpu_torch import pipeline
-from hevc_tpu_torch.bounds import (STAGE_B_TERMS, mc_work, resid_work,
-                                   stage_b_work)
+from hevc_tpu_torch.bounds import (STAGE_B_TERMS, loop_filter_work, mc_work,
+                                   resid_work, stage_b_work)
 from hevc_tpu_torch.capture import StageInputs
 from hevc_tpu_torch.decoder import Decoder
 from hevc_tpu_torch.mc_cuda import mc_table
@@ -101,11 +101,18 @@ def test_stage_b_work_names_each_term(tiny):
     _rep, args, _fps = B.bench_device_stage_b(tiny["tiny"].stream.path,
                                               CPU, 1, "tiny")
     work = stage_b_work(args)
-    assert set(work) == set(STAGE_B_TERMS) | {"sao_luma"}
+    assert set(work) == set(STAGE_B_TERMS)
     assert all(work[k][0] > 0 for k in ("mc", "resid_add", "deblock", "sao",
                                         "output", "residuals", "upload"))
     assert work["mc"][1] > 0 and work["resid_add"][1] > 0
-    assert 0 < work["sao_luma"][0] < work["sao"][0]
+    S = dict(args[10])
+    regions = S["regions"][:1] if S["mono"] else S["regions"]
+    lf = loop_filter_work([(h, w) for _oy, _ox, h, w in regions],
+                          S["h4"], S["w4"], S["ctb_h"], S["ctb_w"],
+                          S["do_deblock"], S["do_sao"], S["per_slice"],
+                          S["nf"])
+    assert work["sao"][0] == lf["sao"]
+    assert work["deblock"][0] == lf["deblock_v"] + lf["deblock_h"]
     assert work["deblock"][1] == work["sao"][1] == 0
     mc_args, ra_args = _p_frame_inputs(tiny["tiny"].stream.path)
     canvas, refs_l, refs_c, groups, _bd = mc_args
@@ -115,7 +122,7 @@ def test_stage_b_work_names_each_term(tiny):
 
 
 STAGE_KEYS = {"dequant_idct", "mc", "resid_add", "intra_wavefront",
-              "deblock", "sao_luma"}
+              "deblock", "sao"}
 
 
 def test_stages_section_records_every_stage(tiny):

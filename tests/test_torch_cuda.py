@@ -5,7 +5,9 @@ picture's mixed MC groups and all four residual classes; whole streams,
 SHVC, the CABAC and probe kernels; the banded decode (a multi-slice PCM
 stream among them), the frame axis and the banded decode across processes
 over NCCL on every card; the sparse (COO) level upload; the intra
-wavefront kernel on the seeded random cases of hevc_tpu_torch.intra_cases.
+wavefront kernel on the seeded random cases of hevc_tpu_torch.intra_cases;
+the loop filter kernels on the cases of hevc_tpu_torch.filter_cases and on
+1080p pictures of the benchmark's banks.
 Needs a card (marker `cuda`); skips without one.  This file imports only
 the port (no JAX, no hevc_tpu), so it runs on a machine that has only
 torch.  Run it with JAX kept off the card:
@@ -17,11 +19,14 @@ JAX finds: without JAX_PLATFORMS=cpu a JAX CUDA client may take most of
 the card; the ``card`` fixture fails then.)
 
 The NumPy case generators here are shared with tests/test_torch_mc.py."""
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from hevc_tpu_torch import build, intra, intra_cuda, mc_cuda
+from hevc_tpu_torch import (build, filter_cases, filters, intra, intra_cuda,
+                            mc_cuda, pipeline, trace)
 from hevc_tpu_torch.intra_cases import random_case
 from hevc_tpu_torch.mc import mc_plain, resid_add_plain
 from hevc_tpu_torch.pack import DUMP, DUMP16, PAD_REF
@@ -289,6 +294,80 @@ def test_decoder_launches_each_inter_kernel_once_per_picture_on_card(card):
     assert [f.md5_ok for f in frames] == [True] * 3
     n = {k: build.launches[k] - before[k] for k in ("mc", "resid_add")}
     assert n["mc"] == 2 and 1 <= n["resid_add"] <= 2, n
+
+
+# ---------------------------------------------------------------------------
+# the loop filter kernels (csrc/filters.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", sorted(filter_cases.CASES))
+def test_loop_filter_kernels_match_plain_on_card(card, name, seed):
+    case = filter_cases.make(name, seed)
+    err, launches, kept = filter_cases.kernel_errors(case, card)
+    torch.cuda.synchronize()
+    assert err == 0 and kept, (name, err, kept)
+    assert launches == 2 * case["deblock"] + case["sao"]
+
+
+BANKS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmark", "data", "main1080")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic,n_aus,kinds", [("ra", 5, "IPB"),
+                                                 ("intra", 1, "I")])
+def test_loop_filter_kernels_match_plain_on_bank_pictures_on_card(
+        card, traffic, n_aus, kinds):
+    """The first access units of each bank's first segment decoded on the
+    card with the loop filters' inputs captured: the kernels against the
+    plain versions on an IDR, a P and a leaf B (RA) or an IDR (intra)."""
+    from hevc_tpu_torch.capture import (bank_prefix, captured_filters,
+                                        loop_filter_errors, pick_picture)
+    calls = captured_filters(
+        bank_prefix(os.path.join(BANKS, traffic), n_aus), card)
+    assert len(calls) == n_aus
+    for kind in kinds:
+        call = pick_picture(calls, kind)
+        assert call["deblock_planes"][0][0][0].shape == (1080, 1920)
+        errs = loop_filter_errors(call)
+        assert errs == {"deblock_planes": 0, "sao_planes": 0}, (kind, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ipp_wpp", "slices_pcm", "mono",
+                                  "main10_422_filters"])
+def test_no_picture_reaches_the_plain_filters_on_card(card, monkeypatch,
+                                                      name):
+    """A stream decoded on the card: three loop filter launches a picture
+    that deblocks and applies SAO, and never a plain filter."""
+    from torch_streams import CONFIGS, INLINE_ONLY, decode_port, encode_config
+
+    def refused(*_a, **_k):
+        raise AssertionError("a plain filter ran on the card's path")
+
+    for fn in ("deblock", "deblock_luma", "sao_plane"):
+        monkeypatch.setattr(filters, fn, refused)
+    on = {"deblock": 0, "sao": 0}
+
+    def pack(pic):
+        out = orig_pack(pic)
+        spec = dict(out[6])
+        on["deblock"] += 2 * bool(spec["do_deblock"])
+        on["sao"] += bool(spec["do_sao"])
+        return out
+
+    orig_pack = pipeline.pack_frame
+    monkeypatch.setattr(pipeline, "pack_frame", pack)
+    build.reset_launches()
+    trace.reset()
+    frames, n = decode_port(encode_config(*{**CONFIGS, **INLINE_ONLY}[name]),
+                            card)
+    assert all(md5 is True for _p, md5, _poc in frames) and n == len(frames)
+    assert {k: build.launches[k] for k in on} == on and on["deblock"] == 2 * n
+    assert trace.report()["loop_filter_launches"]["total"] == \
+        on["deblock"] + on["sao"]
 
 
 # ---------------------------------------------------------------------------
@@ -823,8 +902,7 @@ def test_bench_720p_config_on_card(card):
     extra = got["extra"]
     assert extra["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}
     stages = {f"{k}_720p" for k in ("dequant_idct", "mc", "resid_add",
-                                    "intra_wavefront", "deblock",
-                                    "sao_luma")}
+                                    "intra_wavefront", "deblock", "sao")}
     assert set(extra["kernel_us"]) == stages
     assert set(extra["kernel_gbps"]) == stages | {"roofline_elementwise"}
     assert set(extra["kernel_bound_us"]) == stages
