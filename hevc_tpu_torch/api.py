@@ -55,6 +55,44 @@ class OHFrame:
     md5_ok: Optional[bool] = None
 
 
+class LayerSelect:
+    """Output selection of a layered decode: one picture an access unit,
+    that of the highest layer up to ``layer`` that the access unit
+    carries, in the order the decoder outputs them.
+
+    A lower layer's picture is held until its access unit's upper layer
+    has been decoded, and is then dropped (never fetched); it is delivered
+    only if the access unit turns out to carry no such layer, which is
+    known once the next access unit begins or the decoder is flushed.
+    Pictures behind a held one wait with it.  Counts ``api_layer_held``
+    (lower-layer pictures still held when a call returns) and
+    ``api_layer_dropped``."""
+
+    def __init__(self, layer: int):
+        self.layer = layer
+        self.held: List[DecodedFrame] = []
+
+    def __call__(self, frames: List[DecodedFrame]) -> List[DecodedFrame]:
+        """The pictures to deliver, of those held and ``frames``."""
+        out, wait = [], []
+        n_old, dropped, held = len(self.held), 0, 0
+        for i, f in enumerate(self.held + frames):
+            au = f.access_unit
+            if au.top > f.layer:
+                dropped += 1
+            elif wait or not (au.closed or f.layer >= self.layer):
+                wait.append(f)
+                held += i >= n_old and f.layer < self.layer
+            else:
+                out.append(f)
+        self.held = wait
+        if held:
+            trace.count("api_layer_held", held)
+        if dropped:
+            trace.count("api_layer_dropped", dropped)
+        return out
+
+
 class OHHandle:
     """One decode session.  `layers` > 1 enables SHVC multi-layer decode
     (the analogue of oh_init_lhvc)."""
@@ -72,12 +110,13 @@ class OHHandle:
         self._started = False
         self._dec: Optional[Decoder] = None
         self._out_fifo: List[OHFrame] = []
+        self._select = LayerSelect(self._active_layer)
         self._display_no = 0
 
     # ---- configuration (before or after start) --------------------------
     def select_active_layer(self, layer_id: int) -> None:
         """oh_select_active_layer (openhevc.h:351): decode up to layer."""
-        self._active_layer = layer_id
+        self._active_layer = self._select.layer = layer_id
         if self._dec:
             self._dec.target_layer = layer_id
 
@@ -129,8 +168,8 @@ class OHHandle:
 
     def decode(self, packet: Optional[bytes], pts: int = 0):
         """oh_decode (openhevc.h:214): feed one AU (None/empty = drain
-        request).  Returns (got_picture, OHFrame|None) — the highest
-        decoded layer's picture, display (POC) order."""
+        request).  Returns (got_picture, OHFrame|None): the next picture
+        in display order, one an access unit (``LayerSelect``)."""
         assert self._started, "call start() first"
         with trace.span("api_decode", pic=pts):
             if packet:
@@ -160,24 +199,19 @@ class OHHandle:
         self._collect()
         self._dec.close()
         out, self._out_fifo = self._out_fifo, []
+        self._select.held = []
         self._dec = None
         self._started = False
         return out
 
     # ---- output ----------------------------------------------------------
     def _collect(self) -> None:
+        """Queue the decoder's finished pictures that the output selection
+        delivers (per access unit across calls; the reference selects
+        among one call's pictures, openhevc.c:553-562)."""
         frames, self._dec.frames = self._dec.frames, []
-        if not frames:
-            return
-        # output selection: highest layer that produced a picture
-        # (reference: openhevc.c:553-562)
-        by_poc = {}
-        for f in frames:
-            cur = by_poc.get(f.poc)
-            if cur is None or f.layer > cur.layer:
-                by_poc[f.poc] = f
-        for poc in sorted(by_poc):
-            self._out_fifo.append(self._wrap(by_poc[poc]))
+        for f in self._select(frames):
+            self._out_fifo.append(self._wrap(f))
 
     def _wrap(self, f: DecodedFrame) -> OHFrame:
         y = f.planes[0]
@@ -208,6 +242,7 @@ def oh_init_lhvc(nb_shards: int = 1, thread_type: int = OH_THREAD_SLICE,
 
     Decodes the base layer and the enhancement layer; the inter-layer
     reference is upsampled (and colour-mapped, with CGS) from the base
-    layer's device DPB on ``device``.  Each picture out is the highest
-    decoded layer's (``select_active_layer`` caps it)."""
+    layer's device DPB on ``device``.  One picture comes out an access
+    unit, of the highest layer it carries up to the active layer
+    (``select_active_layer``, by default the enhancement layer)."""
     return OHHandle(nb_shards, thread_type, layers=2, device=device)

@@ -7,11 +7,15 @@ decoded-picture hashes and prints ``frame= N fps= F time= T``.
 Usage: python -m hevc_tpu_torch.cli -i in.265 [-o out.yuv] [-c]
        [-b torch|inline|plan] [--device cuda] [--trace-out t.json]
 
+The pictures written are those of the highest layer decoded (up to
+``-l``): of the API's selection (``api.LayerSelect``), only the top
+layer's, so that every picture of the raw output has one size.
+
 ``--trace-out`` decodes access unit by access unit, as the API does (each
 unit's index is its pictures' id), under ``torch.profiler`` (the CPU, and
 CUDA on a card) with the program's timeline on, and writes one chrome
 trace: the profiler's events and kernels with the program's spans of
-every thread (``trace.export_chrome``).
+every thread and its counters (``trace.export_chrome``).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ def main(argv=None):
                          "program's spans of every thread")
     args = ap.parse_args(argv)
 
+    from .api import LayerSelect
     from .decoder import Decoder
     from .io import open_input
 
@@ -57,10 +62,11 @@ def main(argv=None):
     dec = Decoder(check_md5=not args.no_md5, recon_backend=args.backend,
                   target_layer=args.layer,
                   temporal_layer=args.temporal_layer, device=args.device)
+    select = LayerSelect(args.layer)
     if args.trace_out:
-        frames = _traced_decode(dec, data, args.trace_out)
+        frames = _traced_decode(dec, data, args.trace_out, select)
     else:
-        frames = dec.decode_bytes(data)
+        frames = select(dec.decode_bytes(data))
     top = max((f.layer for f in frames), default=0)
     frames = [f for f in frames if f.layer == top]
     if args.frames:
@@ -89,10 +95,11 @@ def main(argv=None):
     return 1 if bad else 0
 
 
-def _traced_decode(dec, data, path):
-    """Decode ``data`` one access unit at a time (pts = its index), each
-    picture fetched to the host, under ``torch.profiler`` with the
-    timeline on; write the merged chrome trace to ``path``."""
+def _traced_decode(dec, data, path, select):
+    """Decode ``data`` one access unit at a time (pts = its index), the
+    pictures ``select`` delivers fetched to the host, under
+    ``torch.profiler`` with the timeline on; write the merged chrome trace
+    to ``path``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,15 +109,20 @@ def _traced_decode(dec, data, path):
     cuda = getattr(dec, "device", None) is not None \
         and dec.device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    trace.reset()
     trace.timeline_start()
+    frames = []
     try:
         with profile(activities=acts) as prof:
             for pts, au in enumerate(split_access_units(data)):
                 dec.next_pts = pts
                 for n in nalmod.split_annexb(au):
                     dec.decode_nal(n)
+                frames += select(dec.frames)
+                dec.frames = []
             dec.flush()
-            frames, dec.frames = dec.frames, []
+            frames += select(dec.frames)
+            dec.frames = []
             for f in frames:
                 f.planes[0]  # the fetch, inside the trace
             if cuda:

@@ -14,6 +14,7 @@ Copied from ``hevc_tpu/decoder/core.py`` at e99b487.
 """
 from __future__ import annotations
 
+import collections
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -88,6 +89,8 @@ class DecodedFrame:
     # presentation timestamp of the AU this picture was decoded from
     # (propagated with the picture, like the reference's AVFrame->pts)
     pts: int = 0
+    # the access unit the picture belongs to (the API's output selection)
+    access_unit: Optional["AccessUnit"] = None
     # md5_ok is lazy on the device pipeline: the check fetches the
     # decoded planes, so deferring it to first access lets the
     # device->host copies overlap later frames' decode
@@ -105,6 +108,16 @@ class DecodedFrame:
     def md5_ok(self, v):
         self._md5_ok = v
         self._md5_eval = None
+
+
+@dataclass
+class AccessUnit:
+    """One access unit as the output selection sees it: ``top``, the
+    highest layer of its pictures that finished decoding (-1 before the
+    first); ``closed`` once no picture can join it, because the next
+    access unit began or the decoder was flushed."""
+    top: int = -1
+    closed: bool = False
 
 
 class _CuState:
@@ -1398,6 +1411,10 @@ class Decoder:
         # captured per picture at its first slice so B-frame reordering
         # keeps each picture's own timestamp
         self.next_pts = 0
+        # the access unit of the pictures starting now, and the layer of
+        # the last picture that started in it
+        self._au: Optional[AccessUnit] = None
+        self._au_layer = 0
 
     def _layer(self, lid: int) -> _LayerCtx:
         if lid not in self.layers:
@@ -1417,6 +1434,15 @@ class Decoder:
                 concurrent.futures.ThreadPoolExecutor(max_workers=1)
         pool.submit(lp._mat)
 
+    def _may_be_superseded(self, lay: _LayerCtx, sps) -> bool:
+        """Whether a picture of ``lay`` may have a picture of a higher
+        layer decoded in its access unit: the stream's VPS has a layer
+        above it up to ``target_layer``."""
+        vps = self.vps_map.get(sps.vps_id)
+        top = min(self.target_layer,
+                  vps.max_layers - 1 if vps is not None else 0)
+        return lay.layer_id < top
+
     def _pack_submit(self, fn, *args, pic=None):
         """Run fn on the ordered pack worker: a single-thread FIFO
         executor that owns all dpb_dev state and the device dispatch.
@@ -1425,7 +1451,10 @@ class Decoder:
         frame-thread pipelining (pthread_frame.c:484).  Set
         HEVC_TPU_ASYNC_PACK=0 to run inline.  ``pic`` is the picture id
         of the job's spans; the future carries the job's
-        ``trace.Handoff`` as ``handoff``."""
+        ``trace.Handoff`` as ``handoff``.  Only the pending jobs' futures
+        are kept for ``flush``'s barrier: a done job's future (and the
+        device output it holds) is let go at the next submit, where its
+        exception, if any, is raised."""
         from .. import trace
         h = trace.handoff(pic)
         if os.environ.get("HEVC_TPU_ASYNC_PACK", "1") == "0":
@@ -1442,10 +1471,13 @@ class Decoder:
         if pool is None:
             pool = self._pack_pool = \
                 concurrent.futures.ThreadPoolExecutor(max_workers=1)
-            self._pack_futs = []
+            self._pack_futs = collections.deque()
+        futs = self._pack_futs
+        while futs and futs[0].done():  # the worker runs jobs in order
+            futs.popleft().result()
         fut = pool.submit(self._pack_job, h, fn, args)
         fut.handoff = h
-        self._pack_futs.append(fut)
+        futs.append(fut)
         return fut
 
     def _pack_job(self, h, fn, args):
@@ -1540,6 +1572,21 @@ class Decoder:
             futs.clear()
         for lid in sorted(self.layers):
             self._drain_output(self.layers[lid])
+        if self._au is not None:
+            self._au.closed = True
+            self._au = None
+
+    def _access_unit(self, lid: int) -> AccessUnit:
+        """The access unit of a picture of layer ``lid`` starting now: a
+        new one unless the last picture that started was of a lower layer
+        (an access unit's pictures come in increasing nuh_layer_id,
+        F.7.4.2.4.4)."""
+        if self._au is None or lid <= self._au_layer:
+            if self._au is not None:
+                self._au.closed = True
+            self._au = AccessUnit()
+        self._au_layer = lid
+        return self._au
 
     def _run_slice_batch(self):
         """Execute deferred slice-parallel stage-A jobs concurrently
@@ -1678,11 +1725,13 @@ class Decoder:
         lay.il_ref = (bl_poc, il)
         # inter-layer motion field for TMVP from the IL ref (set_mfm;
         # zeroed at EL IRAP — reference: hevc_refs.c:733-755)
+        from .. import trace
         from ..ops.upsample import upscale_motion_field
-        lay.il_motion = upscale_motion_field(
-            bl.dpb_motion[bl_poc], rep_bl.width, rep_bl.height,
-            sps.width, sps.height, lay.cur_poc,
-            irap=nalmod.is_irap_nal(nal_type))
+        with trace.span("il_motion", pic=lay.cur_pts):
+            lay.il_motion = upscale_motion_field(
+                bl.dpb_motion[bl_poc], rep_bl.width, rep_bl.height,
+                sps.width, sps.height, lay.cur_poc,
+                irap=nalmod.is_irap_nal(nal_type))
 
     def _decode_slice(self, nal: nalmod.NalUnit):
         lid = nal.layer_id
@@ -1701,6 +1750,7 @@ class Decoder:
             pps.derive(sps)
         if sh.first_slice_in_pic:
             self._finish_all_pending()
+            au = self._access_unit(lid)
             lay.skip_cur_pic = False
             if nalmod.is_idr_nal(nal.type):
                 poc = 0
@@ -1728,6 +1778,7 @@ class Decoder:
                     lay.max_ra = float("-inf")
             lay.cur_pic = PictureState(sps, pps)
             lay.cur_pts = self.next_pts
+            lay.cur_au = au
             if self.recon_backend != "inline":
                 lay.cur_pic.plan = []
                 if self.recon_backend == "torch" and _native_slice() \
@@ -2160,7 +2211,9 @@ class Decoder:
                              poc=lay.cur_poc, layer=lay.layer_id,
                              bit_depth=pic.sps.bit_depth_luma,
                              chroma_format=pic.sps.chroma_format_idc,
-                             pts=getattr(lay, "cur_pts", 0))
+                             pts=getattr(lay, "cur_pts", 0),
+                             access_unit=lay.cur_au)
+        lay.cur_au.top = max(lay.cur_au.top, lay.layer_id)
         if lay.side_data or lay.oneshot_side_data:
             frame.side_data = dict(lay.side_data)
             frame.side_data.update(lay.oneshot_side_data)
@@ -2181,7 +2234,11 @@ class Decoder:
                               bd=pic.sps.bit_depth_luma):
                         return picture_md5(list(lp), bd) == expect
                     frame._md5_eval = _eval
-                    self._prefetch(lp)
+                    # a picture the API's output selection may drop (a
+                    # layer below the top one decoded) is fetched only if
+                    # its checksum is read (api.LayerSelect)
+                    if not self._may_be_superseded(lay, pic.sps):
+                        self._prefetch(lp)
                 else:
                     got = picture_md5(pic.planes, pic.sps.bit_depth_luma)
                     frame.md5_ok = got == frame.sei_hash.md5

@@ -137,7 +137,10 @@ def upscale_motion_field(bl_motion: dict, bl_w: int, bl_h: int,
     bl_motion: a decoder dpb_motion dict (mv0/mv1 [h4,w4,2] int32,
     poc0/poc1 [h4,w4]).  Returns the same structure at EL dimensions,
     sampled per 16x16 EL block at the collocated BL 16x16 block and
-    replicated, MVs rescaled by the SHVC mv_scale factors."""
+    replicated, MVs rescaled by the SHVC mv_scale factors.  Every block at
+    once in NumPy (a block whose collocated position falls outside the BL
+    picture, or whose list has no reference, keeps the empty entry); the
+    4x4 rows and columns past el_h >> 2 and el_w >> 2 stay empty."""
     h4e, w4e = -(-el_h // 4), -(-el_w // 4)
     NO_POC = -(1 << 30)
     out = {
@@ -155,37 +158,41 @@ def upscale_motion_field(bl_motion: dict, bl_w: int, bl_h: int,
     mvsx = max(-4096, min(4095, ((el_w << 8) + (bl_w >> 1)) // bl_w))
     mvsy = max(-4096, min(4095, ((el_h << 8) + (bl_h >> 1)) // bl_h))
 
-    def scale_mv(v, sc):
-        p = int(sc) * int(v)
-        return max(-32768, min(32767, (p + 127 + (p < 0)) >> 8))
+    def collocated(el, el_n, scale, bl_n, n4):
+        """Each EL 16-block's collocated BL 4x4 index (clipped into the
+        field) and whether the BL 16-block lies inside the picture."""
+        bl = ((((np.minimum(el, el_n - 1) + 8) * scale + (1 << 15)) >> 16)
+              + 4) & ~15
+        return np.minimum(bl >> 2, n4 - 1), bl < bl_n
 
-    for y_el in range(0, el_h, 16):
-        for x_el in range(0, el_w, 16):
-            x_bl = (((min(x_el, el_w - 1) + 8) * scale_x + (1 << 15))
-                    >> 16) + 4
-            y_bl = (((min(y_el, el_h - 1) + 8) * scale_y + (1 << 15))
-                    >> 16) + 4
-            ok = (x_bl & ~15) < bl_w and (y_bl & ~15) < bl_h
-            sl = np.s_[y_el >> 2:min(y_el + 16, el_h) >> 2,
-                       x_el >> 2:min(x_el + 16, el_w) >> 2]
-            if not ok:
-                continue
-            yb4, xb4 = (y_bl & ~15) >> 2, (x_bl & ~15) >> 2
-            p0 = int(bl_motion["poc0"][yb4, xb4])
-            p1 = int(bl_motion["poc1"][yb4, xb4])
-            if p0 == NO_POC and p1 == NO_POC:
-                continue
-            for lst, poc in (("0", p0), ("1", p1)):
-                if poc == NO_POC:
-                    continue
-                mv = bl_motion["mv" + lst][yb4, xb4]
-                if snr:
-                    mvx, mvy = int(mv[0]), int(mv[1])
-                else:
-                    mvx = scale_mv(mv[0], mvsx)
-                    mvy = scale_mv(mv[1], mvsy)
-                out["mv" + lst][sl] = (mvx, mvy)
-                out["poc" + lst][sl] = poc
+    h4b, w4b = np.shape(bl_motion["poc0"])
+    yb4, oky = collocated(np.arange(0, el_h, 16, dtype=np.int64), el_h,
+                          scale_y, bl_h, h4b)
+    xb4, okx = collocated(np.arange(0, el_w, 16, dtype=np.int64), el_w,
+                          scale_x, bl_w, w4b)
+    at = np.ix_(yb4, xb4)
+    ok = oky[:, None] & okx[None, :]
+
+    def scale_mv(v, sc):
+        p = np.int64(sc) * v
+        return np.clip((p + 127 + (p < 0)) >> 8, -32768, 32767)
+
+    def cells(blocks):
+        """A 16-block array replicated over its 4x4 cells, cut to the
+        first el_h >> 2 rows and el_w >> 2 columns of cells."""
+        full = np.repeat(np.repeat(blocks, 4, axis=0), 4, axis=1)
+        return full[:el_h >> 2, :el_w >> 2]
+
+    for lst in ("0", "1"):
+        poc = np.asarray(bl_motion["poc" + lst])[at].astype(np.int64)
+        mv = np.asarray(bl_motion["mv" + lst])[at].astype(np.int64)
+        if not snr:
+            mv = np.stack([scale_mv(mv[..., 0], mvsx),
+                           scale_mv(mv[..., 1], mvsy)], axis=-1)
+        use = ok & (poc != NO_POC)
+        written = np.s_[:el_h >> 2, :el_w >> 2]
+        out["mv" + lst][written] = cells(np.where(use[..., None], mv, 0))
+        out["poc" + lst][written] = cells(np.where(use, poc, NO_POC))
     return out
 
 

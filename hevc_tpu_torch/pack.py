@@ -456,6 +456,17 @@ def filter_inputs(pic) -> FilterInputs:
 COO_MIN = 1 << 16
 
 
+def _pad_pairs(nz, val, total):
+    """``nz``/``val`` padded to a power of two with the index ``total``
+    (dropped on the device) and the value 0."""
+    coo_n = _pow2_at_least(max(int(nz.size), 1))
+    idx = np.full(coo_n, total, np.int32)
+    idx[:nz.size] = nz
+    pad = np.zeros(coo_n, np.int16)
+    pad[:nz.size] = val
+    return idx, pad
+
+
 def coo_pairs(levels16):
     """(idx int32, val int16) of the nonzero levels of an int16 pool, padded
     to a power of two with the index ``levels16.size`` (dropped on the
@@ -465,12 +476,55 @@ def coo_pairs(levels16):
     nz = np.nonzero(levels16)[0]
     if nz.size * 3 >= levels16.size:
         return None
-    coo_n = _pow2_at_least(max(int(nz.size), 1))
-    idx = np.full(coo_n, levels16.size, np.int32)
-    idx[:nz.size] = nz
-    val = np.zeros(coo_n, np.int16)
-    val[:nz.size] = levels16[nz]
-    return idx, val
+    return _pad_pairs(nz, levels16[nz], levels16.size)
+
+
+def sparse_levels(lvl, lm, nlv):
+    """``coo_pairs`` of the dense level pool that ``hevc_native_gather_levels``
+    would fill from ``lvl`` and the level rows ``lm`` (class, offset in
+    ``lvl``, ...; ``nlv`` slots a class), found from the nonzeros of
+    ``lvl`` without building the pool.  None where two rows share
+    coefficients of ``lvl``, or where ``lvl`` holds a sixteenth or more of
+    the pool's size in nonzeros: sorting that many pairs costs more than
+    building the pool, which then decides (``coo_pairs``)."""
+    sizes = [(4 << c) * (4 << c) for c in range(4)]
+    total = sum(n * s for n, s in zip(nlv, sizes))
+    if total < COO_MIN or np.count_nonzero(lvl) * 16 >= total:
+        return None
+    cls, off = lm[:, 0], lm[:, 1]
+    # each row's slot in its class's pool, in row order
+    slot = np.empty(cls.size, np.int64)
+    for c in range(4):
+        rows = np.flatnonzero(cls == c)
+        slot[rows] = np.arange(rows.size)
+    size = np.asarray(sizes, np.int64)[cls]
+    base = np.concatenate([[0], np.cumsum([n * s for n, s in
+                                           zip(nlv, sizes)])])[cls]
+    live = np.flatnonzero(off >= 0)  # CCP-only rows keep a zeroed slot
+    order = live[np.argsort(off[live], kind="stable")]
+    start = off[order].astype(np.int64)
+    end = start + size[order]
+    if np.any(start[1:] < end[:-1]):
+        return None
+    p = np.flatnonzero(lvl != 0)  # a mask first: several times faster
+    r = np.searchsorted(start, p, side="right") - 1
+    keep = r >= 0
+    keep[keep] = p[keep] < end[r[keep]]
+    p, r = p[keep], r[keep]
+    row = order[r]
+    idx = base[row] + slot[row] * size[row] + (p - start[r])
+    srt = np.argsort(idx, kind="stable")
+    return _pad_pairs(idx[srt], lvl[p[srt]], total), total
+
+
+def _level_rows(lm, nlv):
+    """The per-class residual rows ``hevc_native_gather_levels`` writes:
+    each level row's fields 2..10, in row order, zero-padded to ``nlv``."""
+    rms = [np.zeros((nlv[c], 9), np.int32) for c in range(4)]
+    for c in range(4):
+        rows = lm[lm[:, 0] == c, 2:11]
+        rms[c][:rows.shape[0]] = rows
+    return rms
 
 
 def pack_frame(pic):
@@ -545,43 +599,55 @@ def pack_frame(pic):
     im, iv, lm = imeta[:ni], iavail[:ni], lmeta[:nl]
     cls_i = im[:, 0]
     parts = []        # int32 meta blocks, in frame_program order
-    avail_parts = []
-    B = []
     with trace.span("pack.intra"):
+        sels, B = [], []
         for c in range(4):
             sel = np.nonzero(cls_i == c)[0]
             cnt = int(im[sel, 2].max()) + 1 if sel.size else 0
-            Bc = _pow2_at_least(cnt) if cnt else 0
-            B.append(Bc)
+            sels.append(sel)
+            B.append(_pow2_at_least(cnt) if cnt else 0)
+        # the classes' [n_chunks, B_c, 128] availability blocks back to
+        # back, written in place: the upload's own buffer
+        avail_u8 = np.zeros(n_chunks * sum(B) * 128 or 1, np.uint8)
+        avail_rows = avail_u8[:n_chunks * sum(B) * 128].reshape(-1, 128)
+        row0 = 0
+        for sel, Bc in zip(sels, B):
             a = np.zeros((n_chunks, Bc, 8), np.int32)
             a[:, :, 0] = DUMP
             a[:, :, 1] = DUMP
             a[:, :, 2] = 1
-            v = np.zeros((n_chunks, Bc, 128), np.uint8)
             if sel.size:
                 a[im[sel, 1], im[sel, 2]] = im[sel, 3:11]
-                v[im[sel, 1], im[sel, 2]] = iv[sel]
+                avail_rows[row0 + im[sel, 1] * Bc + im[sel, 2]] = iv[sel]
+            row0 += n_chunks * Bc
             parts.append(a.reshape(-1))
-            avail_parts.append(v.reshape(-1))
 
-    lvl_parts = []
     with trace.span("pack.levels"):
         # per-class (rmeta, int16 levels); padding rows and the CCP zero
-        # slot stay zeroed
+        # slot stay zeroed.  A pool that ships sparse is never built: its
+        # pairs come from the nonzeros of the native level buffer
         cls_counts = np.bincount(lm[:, 0], minlength=4) if nl else \
             np.zeros(4, np.int64)
         nlv = [_round_up(int(cls_counts[c]) + 1, 16) for c in range(4)]
-        rms = [np.zeros((nlv[c], 9), np.int32) for c in range(4)]
-        lv16s = [np.zeros((nlv[c], (4 << c) * (4 << c)), np.int16)
-                 for c in range(4)]
-        if nl:
-            N._gather_levels_fn()(
-                lvl, np.ascontiguousarray(lm).reshape(-1), nl,
-                *(r.reshape(-1) for r in rms),
-                *(v.reshape(-1) for v in lv16s))
-        for c in range(4):
-            parts.append(rms[c].reshape(-1))
-            lvl_parts.append(lv16s[c].reshape(-1))
+        sparse = sparse_levels(lvl, lm, nlv) if nl else None
+        if sparse is not None:
+            levels16, total = sparse
+            rms = _level_rows(lm, nlv)
+        else:
+            sizes = [nlv[c] * (4 << c) * (4 << c) for c in range(4)]
+            levels16 = np.zeros(sum(sizes), np.int16)
+            rms = [np.zeros((nlv[c], 9), np.int32) for c in range(4)]
+            if nl:
+                cuts = np.cumsum(sizes)[:3]
+                N._gather_levels_fn()(
+                    lvl, np.ascontiguousarray(lm).reshape(-1), nl,
+                    *(r.reshape(-1) for r in rms),
+                    *np.split(levels16, cuts))
+            total = levels16.size
+            pairs = coo_pairs(levels16)
+            if pairs is not None:
+                levels16 = pairs
+        parts += [r.reshape(-1) for r in rms]
 
     # MC groups keyed (is_ch, bi, wp, 3, w, h): one kind, exact counts
     parts16 = []
@@ -653,15 +719,7 @@ def pack_frame(pic):
         meta16 = np.concatenate(parts16) if parts16 \
             else np.zeros(1, np.int16)
         meta8 = np.concatenate(parts8)
-        avail_u8 = np.concatenate(avail_parts) if any(B) \
-            else np.zeros(1, np.uint8)
-        levels16 = np.concatenate(lvl_parts)
-        total = levels16.size
-        pairs = coo_pairs(levels16)
-        coo_n = 0
-        if pairs is not None:
-            levels16 = pairs
-            coo_n = pairs[0].size
+        coo_n = levels16[0].size if isinstance(levels16, tuple) else 0
 
     do_sao = bool(getattr(pic, "has_sao", False)) \
         or bool(getattr(pic, "sao_map", None))

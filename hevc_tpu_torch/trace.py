@@ -6,7 +6,8 @@ Always on, cheap enough to stay compiled in:
 - ``span(name)`` accumulates calls, wall seconds and self seconds (less
   the spans nested in it on its thread) per name (``time.perf_counter``);
 - ``count(name, n)`` accumulates a counter (``h2d_bytes``,
-  ``device_allocs``, ``loop_filter_launches``);
+  ``device_allocs``, ``loop_filter_launches``, ``api_layer_held``,
+  ``api_layer_dropped``);
 - ``report()`` returns both, and the wall seconds since ``reset()`` under
   the reserved name ``WALL``.  Accumulation is thread-safe: the caller,
   the pack worker and the fetch worker all record.
@@ -23,9 +24,9 @@ Recorded on request:
   opens a ``record_function`` range of its name, so the profiler's trace
   names the host's work by the program's spans.
 
-``export_chrome`` writes the timeline as a chrome trace, alone or merged
-into a ``torch.profiler`` trace on its clock (``python -m
-hevc_tpu_torch.cli -i in.265 --trace-out t.json``).
+``export_chrome`` writes the timeline and the counters' totals as a
+chrome trace, alone or merged into a ``torch.profiler`` trace on its
+clock (``python -m hevc_tpu_torch.cli -i in.265 --trace-out t.json``).
 
 Usage:
     from hevc_tpu_torch import trace
@@ -353,6 +354,16 @@ def _chrome_events(records, base_ns: int, pid, tids=None,
     return events
 
 
+def _counter_events(records, base_ns: int, pid) -> list:
+    """The counters' totals since ``reset()`` as chrome-trace counter
+    events, at the end of the last record."""
+    end = max((r.end_ns for r in records), default=base_ns)
+    with _lock:
+        totals = {k: v[1] for k, v in sorted(_cnt.items())}
+    return [{"ph": "C", "name": k, "pid": pid, "ts": (end - base_ns) / 1e3,
+             "args": {k: v}} for k, v in totals.items()]
+
+
 def export_chrome(path: str, device_trace=None) -> None:
     """Write the timeline (``timeline()``) to ``path`` as a chrome trace.
 
@@ -379,5 +390,6 @@ def export_chrome(path: str, device_trace=None) -> None:
         skip = True
     doc["traceEvents"].extend(_chrome_events(records, base, os.getpid(),
                                             tids, skip_profiled=skip))
+    doc["traceEvents"].extend(_counter_events(records, base, os.getpid()))
     with open(path, "w") as f:
         json.dump(doc, f)

@@ -25,11 +25,13 @@ import torch
 from hevc_tpu import native
 from hevc_tpu.decoder.core import Decoder
 from hevc_tpu.tpu import pipeline as JP
+from hevc_tpu_torch import native as TN
 from hevc_tpu_torch import pipeline as PP
 from hevc_tpu_torch.decoder import TorchDecoder
 from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
 from hevc_tpu_torch.encoder.generate import synth_frame
-from hevc_tpu_torch.pack import COO_MIN, coo_pairs, pack_frame
+from hevc_tpu_torch.pack import (COO_MIN, _level_rows, coo_pairs, pack_frame,
+                                 sparse_levels)
 from torch_gate import native_ready
 
 pytestmark = pytest.mark.skipif(not native_ready(native),
@@ -209,6 +211,81 @@ def test_coo_pairs_threshold():
     assert np.array_equal(idx[:29999], np.arange(1, 30000))
     assert (idx[29999:] == dense.size).all() and (val[29999:] == 0).all()
     assert (val[:29999] == 2).all()
+
+
+def _level_case(seed, overlap=False):
+    """A native level buffer and its level rows (class, offset, 9 fields):
+    rows of every class in shuffled order and at shuffled offsets, some
+    CCP-only (offset -1), coefficients outside every row (PCM samples), a
+    few nonzeros a row; ``overlap`` makes two rows share coefficients."""
+    rng = np.random.default_rng(seed)
+    cls = rng.choice(4, 900, p=[0.3, 0.3, 0.25, 0.15]).astype(np.int32)
+    size = (4 << cls) ** 2
+    gap = rng.integers(0, 40, cls.size)
+    order = rng.permutation(cls.size)
+    off = np.empty(cls.size, np.int64)
+    pos = 0
+    for t in order:
+        pos += int(gap[t])
+        off[t] = pos
+        pos += int(size[t])
+    lvl = np.zeros(pos + 64, np.int16)
+    lvl[rng.choice(lvl.size, lvl.size // 50, replace=False)] = \
+        rng.integers(-200, 200, lvl.size // 50)
+    off[rng.choice(cls.size, 40, replace=False)] = -1
+    if overlap:
+        t = int(np.flatnonzero(off >= 0)[0])
+        u = int(np.flatnonzero((off >= 0) & (np.arange(cls.size) != t))[0])
+        off[u] = off[t] + 1
+    lm = np.zeros((cls.size, 11), np.int32)
+    lm[:, 0], lm[:, 1] = cls, off
+    lm[:, 2:] = rng.integers(-9, 9, (cls.size, 9))
+    nlv = [-(-(int((cls == c).sum()) + 1) // 16) * 16 for c in range(4)]
+    return lvl, lm, nlv
+
+
+def _gathered(lvl, lm, nlv):
+    """The dense pool and rows of the native gather (the pack's dense
+    path)."""
+    rms = [np.zeros((nlv[c], 9), np.int32) for c in range(4)]
+    pools = [np.zeros(nlv[c] * (4 << c) ** 2, np.int16) for c in range(4)]
+    TN._gather_levels_fn()(lvl, np.ascontiguousarray(lm).reshape(-1),
+                           lm.shape[0], *(r.reshape(-1) for r in rms),
+                           *pools)
+    return np.concatenate(pools), rms
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_sparse_levels_are_the_pairs_of_the_gathered_pool(seed):
+    """``sparse_levels`` finds the (idx, val) pairs of the pool that the
+    native gather fills without building it: the same pairs as
+    ``coo_pairs`` of that pool, and ``_level_rows`` its rows."""
+    lvl, lm, nlv = _level_case(seed)
+    pool, rms = _gathered(lvl, lm, nlv)
+    want = coo_pairs(pool)
+    assert want is not None
+    got, total = sparse_levels(lvl, lm, nlv)
+    assert total == pool.size
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    for g, w in zip(_level_rows(lm, nlv), rms):
+        assert np.array_equal(g, w)
+
+
+def test_sparse_levels_leave_dense_and_shared_rows_to_the_pool():
+    """No pairs where two rows read the same coefficients, nor where the
+    level buffer holds a sixteenth of the pool's size or more in nonzeros,
+    whether the pool then ships dense or sparse: the pack builds the pool
+    and ``coo_pairs`` decides."""
+    lvl, lm, nlv = _level_case(4, overlap=True)
+    assert sparse_levels(lvl, lm, nlv) is None
+    lvl, lm, nlv = _level_case(5)
+    lvl[::8] = 5                            # an eighth nonzero: sparse
+    assert coo_pairs(_gathered(lvl, lm, nlv)[0]) is not None
+    assert sparse_levels(lvl, lm, nlv) is None
+    lvl[:] = 7
+    assert coo_pairs(_gathered(lvl, lm, nlv)[0]) is None
+    assert sparse_levels(lvl, lm, nlv) is None
 
 
 def test_torch_decoder_decodes_the_sparse_stream():

@@ -2,7 +2,9 @@
 bit (tolerance 0), on inputs made from NumPy seeds: ``upsample_frame`` at
 x2, x1.5, an arbitrary ratio, x1 (SNR) and across bit depths,
 ``color_map_frame`` with random LUTs of octant depth 1 and 2,
-``pad_dev_refs`` with ``aligned=False``; the port's ``ShvcEncoder``
+``pad_dev_refs`` with ``aligned=False``, ``upscale_motion_field`` (the
+port's per-block NumPy against the JAX package's loop); the port's
+``ShvcEncoder``
 writes the JAX package's bytes; ``LazyPlanes`` over a list of planes and
 ``device_ready``; the IL build refuses a base layer missing from its
 device DPB.  tests/test_torch_shvc_streams.py decodes the two-layer
@@ -17,6 +19,7 @@ from hevc_tpu.encoder.generate import synth_frame as jax_synth
 from hevc_tpu.encoder.shvc import ShvcEncoder as JaxShvc
 from hevc_tpu.ops.cgs import CgsLut as JaxCgsLut
 from hevc_tpu.ops.cgs import write_cgs_lut as jax_write_lut
+from hevc_tpu.ops.upsample import upscale_motion_field as jax_motion
 from hevc_tpu.tpu.pipeline import pad_dev_refs as jax_pad_dev_refs
 from hevc_tpu.tpu.upsample import color_map_frame_jax, upsample_frame_jax
 from hevc_tpu_torch import pipeline as PP
@@ -24,6 +27,7 @@ from hevc_tpu_torch import upsample as UP
 from hevc_tpu_torch.bitstream.bits import BitWriter
 from hevc_tpu_torch.encoder.shvc import ShvcEncoder
 from hevc_tpu_torch.ops.cgs import CgsLut, write_cgs_lut
+from hevc_tpu_torch.ops.upsample import upscale_motion_field
 from hevc_tpu_torch.pack import PAD_REF
 from torch_streams import SHVC, encode_shvc
 
@@ -122,6 +126,41 @@ def test_pad_dev_refs_matches_jax(shapes):
         assert got[1] is got[0] and got[2] is got[0]
     with pytest.raises(NotImplementedError, match="TPU-aligned"):
         PP.pad_dev_refs(_t(planes), aligned=True)
+
+
+MOTION = {  # BL (w, h), EL (w, h)
+    "x1_5_1080p": ((1280, 720), (1920, 1080)),
+    "x2": ((64, 64), (128, 128)),
+    "x1_5_small": ((128, 64), (192, 96)),
+    "arbitrary": ((48, 32), (112, 80)),
+    "snr": ((64, 64), (64, 64)),
+    "off_grids": ((37, 21), (111, 63)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MOTION))
+def test_upscale_motion_field_matches_jax(name):
+    """Random BL motion fields (either list empty at random 4x4 blocks,
+    MVs past the 16-bit clip after scaling), and the EL IRAP's empty
+    field: every array equal, dtype and shape too."""
+    (bw, bh), (ew, eh) = MOTION[name]
+    rng = np.random.default_rng(len(name))
+    h4, w4 = -(-bh // 4), -(-bw // 4)
+    no_poc = -(1 << 30)
+    field = {
+        "mv0": rng.integers(-3000, 3000, (h4, w4, 2)).astype(np.int32),
+        "mv1": rng.integers(-40000, 40000, (h4, w4, 2)).astype(np.int32),
+        "poc0": np.where(rng.random((h4, w4)) < 0.3, no_poc,
+                         rng.integers(-5, 9, (h4, w4))),
+        "poc1": np.where(rng.random((h4, w4)) < 0.6, no_poc,
+                         rng.integers(-5, 9, (h4, w4))).astype(np.int32)}
+    for irap in (False, True):
+        want = jax_motion(field, bw, bh, ew, eh, 7, irap=irap)
+        got = upscale_motion_field(field, bw, bh, ew, eh, 7, irap=irap)
+        assert got["poc"] == want["poc"]
+        for k in ("mv0", "mv1", "poc0", "poc1"):
+            assert got[k].dtype == want[k].dtype
+            assert np.array_equal(got[k], want[k]), k
 
 
 @pytest.mark.parametrize("name", sorted(SHVC))
