@@ -14,7 +14,9 @@
    launch each, the intra kernel on the six seeded chunk tables of
    ``hevc_tpu_torch.intra_cases`` (one launch per live chunk), and the
    loop filter kernels (deblocking, two launches; SAO, one) on two draws
-   of each picture of ``hevc_tpu_torch.filter_cases``;
+   of each picture of ``hevc_tpu_torch.filter_cases``, and the residual
+   kernel (one launch) on two draws of each case of
+   ``hevc_tpu_torch.resid_cases``;
 4. decodes a 96x80 IPP stream on the card and compares it with the
    port's inline NumPy decoder, then decodes a 4-frame 1920x1080 IPP/WPP
    stream (the headline stream of ``bench.py``, cut to 4 frames and
@@ -23,8 +25,9 @@
    and checks every frame's SEI MD5, that MC launched once and the
    residual add at most once per inter picture on that run, and that the
    outputs lived on the card, that the intra kernel launched once per
-   live chunk of every picture and the loop filter kernels three times a
-   picture; then holds both inter kernels against
+   live chunk of every picture, the loop filter kernels three times a
+   picture and the residual kernel once a picture; then holds both inter
+   kernels against
    their plain versions on the captured rows of a real 1080p P frame and
    the intra kernel on the captured I picture (``intra_place``: error 0,
    its time beside the plain version's and its bound) and times them
@@ -33,7 +36,9 @@
    filter kernels on 1080p pictures of the benchmark's banks
    (``phase_loop_filter``: an IDR, a P and a leaf B of ``ra``, an IDR of
    ``intra``), bit for bit, timed beside the plain versions, the
-   wrappers' host cost and the bound.  The 1080p
+   wrappers' host cost and the bound; then the residual kernel the same
+   way (``phase_residuals``: those pictures and the SHVC bank's base-layer
+   IDR and an enhancement-layer P).  The 1080p
    streams are encoded once into ``.bench/`` by worker processes, one a
    stream, that start with the script and are done before the first
    1080p decode;
@@ -164,7 +169,8 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 
 from hevc_tpu_torch.bounds import (HBM_BYTES_S, bound_ms, intra_work,
-                                   loop_filter_work, mc_work, resid_work)
+                                   loop_filter_work, mc_work, resid_work,
+                                   residual_work)
 from hevc_tpu_torch.capture import Capture, intra_args, kernel_errors
 from hevc_tpu_torch.device import cuda_ms, profiler_ms
 
@@ -190,6 +196,10 @@ LOOP_FILTER_ERRORS = []
 # (place, the loop filter kernels' launches of one picture): traced at the
 # end, every kernel of the call summed
 PROFILE_LOOP_FILTER = []
+# every residual kernel check's (place, error): all must be 0
+RESID_ERRORS = []
+# (place, the residual kernel's launch of one picture): traced at the end
+PROFILE_RESID = []
 BANKS = os.path.join(ROOT, "benchmark", "data", "main1080")
 CACHE = os.path.join(ROOT, ".bench")
 W, H, QP, FRAMES = 1920, 1080, 30, 4
@@ -551,6 +561,16 @@ def phase_random_kernels(dev):
             assert launches == 2 * case["deblock"] + case["sao"], launches
             n_lf += launches
     LOOP_FILTER_ERRORS.append(("random cases", 0))
+    from hevc_tpu_torch import resid_cases
+    from hevc_tpu_torch.capture import residual_errors
+    for name in sorted(resid_cases.CASES):
+        for seed in (0, 1):
+            err, launches = residual_errors(resid_cases.tensors(
+                resid_cases.make(name, seed), dev)[:4])
+            assert (err, launches) == (0, 1), \
+                f"resid_tx_kernel != plain on {name}, seed {seed} (error " \
+                f"{err}, {launches} launches)"
+    RESID_ERRORS.append(("random cases", 0))
     torch.cuda.synchronize()
     log(f"random kernel cases: {len(MC_CASES)} MC flavours, their mixed "
         "groups in one launch, and 4 residual classes alone and together "
@@ -561,7 +581,10 @@ def phase_random_kernels(dev):
         f"{2 * len(filter_cases.CASES)} random pictures (4:0:0 to 4:4:4, 8 "
         "to 16 bit, per-slice maps and SAO edge flags, nf maps, deblocking "
         f"or SAO alone, sizes off the 8-grid and the CTB), {n_lf} launches, "
-        "bit-exact, every sample outside the planes kept")
+        "bit-exact, every sample outside the planes kept; the residual "
+        f"kernel on {2 * len(resid_cases.CASES)} random pictures' pools (8 "
+        "to 16 bit, skip, bypass, matrices, int16 limits, rotation, RDPCM, "
+        "CCP, empty classes), one launch each, bit-exact")
 
 
 def intra_records(args):
@@ -763,6 +786,63 @@ def phase_loop_filter(dev, smi):
     return next(v for k, v in rows.items() if k.startswith("ra P"))
 
 
+def phase_residuals(dev, smi):
+    """The residual kernel on pictures of the benchmark's banks: the first
+    access units of each bank's first segment decoded with the stage's
+    inputs captured (``capture.captured_residuals``), then on the pictures
+    of ``resid_cases.BANK_PICTURES`` (an IDR, a P and a leaf B of ``ra``,
+    the IDR of ``intra``, the base layer's IDR and an enhancement-layer P
+    of ``shvc1080_x1.5/ldp``), bit for bit
+    against the plain version on the card (tolerance 0, one launch); per
+    picture the launch's ms by CUDA events, the plain version's ms, the
+    wrapper's host us (``probes.host_us``) and the bound
+    (``bounds.residual_work``); the launches are traced at the end.
+    Returns the RA P picture's (error, ms, plain ms, bound) for the kernel
+    table."""
+    from hevc_tpu_torch import probes, resid_cases, resid_cuda
+    from hevc_tpu_torch.capture import (bank_prefix, captured_residuals,
+                                        pick_picture, residual_errors)
+    from hevc_tpu_torch.tables import tables_from_reference
+    data = os.path.dirname(BANKS)
+    tables = tables_from_reference(dev)
+    rows = {}
+    for bank, (n_aus, picks) in resid_cases.BANK_PICTURES.items():
+        calls = captured_residuals(
+            bank_prefix(os.path.join(data, bank), n_aus), dev)
+        for kind, layer in picks:
+            call = pick_picture([c for c in calls if c["at"][0] == layer],
+                                kind)
+            label = f"{bank} {kind} {call['at']}"
+            err, launches = residual_errors(call["args"])
+            assert (err, launches) == (0, 1), \
+                f"resid_tx_kernel != plain on {label}: error {err}, " \
+                f"{launches} launches"
+            RESID_ERRORS.append((label, err))
+            levels, rmeta, bd, bank_m = call["args"]
+
+            def kernel(a=(levels, rmeta, bd, bank_m, tables)):
+                resid_cuda.residuals(*a)
+
+            def plain(a=(levels, rmeta, bd, bank_m, tables)):
+                resid_cuda.residuals_plain(*a)
+
+            ms = cuda_ms(kernel, iters=20, warmup=3)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            host = probes.host_us(kernel, calls=200)
+            PROFILE_RESID.append((label, kernel))
+            n_bytes, n_ops = residual_work([m.cpu().numpy() for m in rmeta])
+            bound = bound_ms(n_bytes, n_ops)
+            rows[label] = (err, ms, plain_ms, bound)
+            log(f"residual kernel, {label} ({sum(m.shape[0] for m in rmeta)}"
+                f" records): kernel == plain (error 0); one launch {ms} ms "
+                f"by CUDA events, plain {plain_ms} ms "
+                f"({plain_ms / ms:.0f}x), the wrapper's host {host} us a "
+                f"picture; bound {bound[0]} ms ({bound[1]}, {n_bytes} B, "
+                f"{n_ops} int32 operations; kernel at {bound[0] / ms:.3f} "
+                f"of it) ({smi})")
+    return next(v for k, v in rows.items() if k.startswith("main1080/ra P"))
+
+
 def phase_bench(dev, smi):
     """The main stream through the stage-B functions of ``python -m
     hevc_tpu_torch.bench`` (``bench.bench_stages``, no new encode): its last
@@ -813,9 +893,10 @@ def counted_decode(decode, dev, pipeline, trace, build):
     and how many (idx, val) pairs its level pool shipped as (0: dense);
     every output and DPB entry must be on ``dev``, and every reference
     must come from the device DPB; the intra kernel must launch once per
-    live chunk of the pictures' packs (``live``), and the loop filter
+    live chunk of the pictures' packs (``live``), the loop filter
     kernels twice for each pack whose spec deblocks (``deblock``) and once
-    for each that applies SAO (``sao``).  Returns (decode's result, seen,
+    for each that applies SAO (``sao``), and the residual kernel once a
+    picture (``resid_tx``, and the trace's ``residual_launches``).  Returns (decode's result, seen,
     counts, split, wall seconds)."""
     from hevc_tpu_torch import intra, intra_cuda
     from hevc_tpu_torch import native as N
@@ -860,7 +941,8 @@ def counted_decode(decode, dev, pipeline, trace, build):
         pipeline.finish_frame, pipeline.pack_frame = orig_finish, orig_pack
     wall = time.perf_counter() - t0
     counts = {k: build.launches[k]
-              for k in ("mc", "resid_add", "intra", "deblock", "sao")}
+              for k in ("mc", "resid_add", "intra", "deblock", "sao",
+                        "resid_tx")}
     split = trace.report()
     assert all(s["devices"] == {dev.type} for s in seen), \
         f"outputs or DPB entries not on the card: {seen}"
@@ -872,6 +954,9 @@ def counted_decode(decode, dev, pipeline, trace, build):
     assert {k: counts[k] for k in filtered} == filtered \
         and filtered["sao"] > 0, \
         f"loop filter launches {counts} for the packs' filters {filtered}"
+    assert counts["resid_tx"] == len(seen) \
+        == split["residual_launches"]["total"], \
+        f"residual launches {counts['resid_tx']} for {len(seen)} pictures"
     return result, seen, counts, split, wall
 
 
@@ -1276,7 +1361,8 @@ def counted_banded(layout, frames, halo, pipeline, build):
     """``decode_gop_banded`` picture by picture, counted: launch counts and
     host references from 0 just before, read just after; each picture's
     stage B by CUDA events, the cards synchronised; the intra kernel must
-    launch once per live chunk of every band.  Returns (outputs, ms per
+    launch once per live chunk of every band, the residual kernel once a
+    band.  Returns (outputs, ms per
     picture, launch counts, references from the host)."""
     import torch
     from hevc_tpu_torch import intra, intra_cuda, sharded
@@ -1293,7 +1379,8 @@ def counted_banded(layout, frames, halo, pipeline, build):
         e1.synchronize()
         ev_ms.append(e0.elapsed_time(e1))
     counts = {k: build.launches[k]
-              for k in ("mc", "resid_add", "intra", "deblock", "sao")}
+              for k in ("mc", "resid_add", "intra", "deblock", "sao",
+                        "resid_tx")}
     live = sum(intra_cuda.live_chunks(intra.chunk_counts(
         fb["bands"][k].scal)) for fb in frames for k in layout.bands)
     assert counts["intra"] == live > 0, \
@@ -1301,6 +1388,9 @@ def counted_banded(layout, frames, halo, pipeline, build):
     # the bands' loop filters are the plain ones (ROADMAP item 22)
     assert counts["deblock"] == counts["sao"] == 0, \
         f"banded: loop filter launches {counts}"
+    bands = len(frames) * len(layout.bands)
+    assert counts["resid_tx"] == bands, \
+        f"banded: residual launches {counts['resid_tx']} for {bands} bands"
     return outs, ev_ms, counts, pipeline.host_refs["count"]
 
 
@@ -1971,6 +2061,7 @@ def run(smi, dev):
 
     real = phase_real_kernels(cap, dev, smi)
     loop_filter = phase_loop_filter(dev, smi)
+    resid_tx = phase_residuals(dev, smi)
     phase_bench(dev, smi)
     sparse = {STREAM: [s["coo"] for s in seen]}
     for name in FORMATS:
@@ -2014,6 +2105,16 @@ def run(smi, dev):
         max(e for _p, e in LOOP_FILTER_ERRORS), ms, plain_ms, None, bound))
     log(f"loop filter kernels held against their plain versions (error) "
         f"at: {LOOP_FILTER_ERRORS}")
+    # the residual kernel's row: the main stream's counted launches, the
+    # largest error over every place it was held, the RA P picture's times
+    # and bound
+    _err, ms, plain_ms, bound = resid_tx
+    kernels.append(kernel_row(
+        "resid_tx_kernel", "hevc_tpu_torch/csrc/resid.cu",
+        "hevc_tpu_torch/recon.py residuals", counts["resid_tx"],
+        max(e for _p, e in RESID_ERRORS), ms, plain_ms, None, bound))
+    log(f"residual kernel held against its plain version (error) at: "
+        f"{RESID_ERRORS}")
     for name, row in phase_probes(dev, smi).items():
         kernels.append(kernel_row(
             f"{name}_kernel", "hevc_tpu_torch/csrc/probes.cu",
@@ -2034,6 +2135,10 @@ def run(smi, dev):
     log(f"device ms of a picture's three loop filter launches "
         f"(torch.profiler, the kernels alone, each deblocking a fresh copy "
         f"of the captured planes): {lf} ({smi})")
+    rt = {name: profiler_ms(fn, "resid_tx_kernel", iters=5)
+          for name, fn in PROFILE_RESID}
+    log(f"device ms of a picture's residual launch (torch.profiler, the "
+        f"kernel alone): {rt} ({smi})")
     for rep, iters in PROFILE_REPLAYS:
         busy, idle = rep.profiled(iters)
         log(f"bench stage-B trace, {rep.name}: device-busy {busy} ms a replay"

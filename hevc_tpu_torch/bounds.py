@@ -5,9 +5,10 @@ A bound is the larger of two times: the bytes the function must move
 rate, and its operations over the card's peak rate for their type.  The
 rates are NVIDIA's data sheet for the H100 SXM at its full 700 W.
 
-``mc_work`` / ``resid_work`` / ``intra_work`` / ``loop_filter_work`` count
-the decoder kernels' work on one picture's inputs (what ``chip_smoke.py``
-holds each kernel's time against); ``stage_b_work`` counts every stage of
+``mc_work`` / ``resid_work`` / ``intra_work`` / ``residual_work`` /
+``loop_filter_work`` count the decoder kernels' work on one picture's
+inputs (what ``chip_smoke.py`` holds each kernel's time against);
+``stage_b_work`` counts every stage of
 the frame program (``pipeline.frame_program``) from the inputs of one
 call, the kernels' terms through those functions, so the kernels' bounds
 and the stage-B bytes are one count.
@@ -120,6 +121,26 @@ def intra_work(scal_host, counts, resids):
     return n_bytes, intra_cuda.live_chunks(counts)
 
 
+def residual_work(rmeta):
+    """(bytes, int32 operations) of the residual stage (``resid_cuda``) on
+    one picture: rmeta, per class the host's rows [N, 9] (padding rows
+    included: the kernel computes them too).  Bytes: the int16 levels and
+    the rows read, the int32 pools (a zero slot each) written; the scaling
+    banks (7 matrices a class, 38 KB in all) are left out.  Operations: 4
+    a coefficient to scale and clip it, and for a transformed TU (neither
+    skipped nor bypassed) of n x n two passes of n multiply-adds (2
+    operations each) and a rounding shift and a clip (2) a coefficient."""
+    n_bytes, ops = 0, 0
+    for c, m in enumerate(rmeta):
+        s = 4 << c
+        m = np.asarray(m)
+        n = m.shape[0]
+        tx = int(((m[:, 2] == 0) & (m[:, 3] == 0)).sum()) if n else 0
+        n_bytes += 2 * n * s * s + 4 * m.size + 4 * (n + 1) * s * s
+        ops += 4 * n * s * s + tx * s * s * 2 * (2 * s + 2)
+    return n_bytes, ops
+
+
 def loop_filter_work(shapes, h4, w4, ctb_h, ctb_w, do_deblock=True,
                      do_sao=True, per_slice=False, nf=False):
     """{pass: bytes} of the loop filter kernels (``filters_cuda``) on one
@@ -156,8 +177,8 @@ def stage_b_work(args):
     - ``upload``: the packed buffers and the MC row table, written once;
       a level pool shipped as (idx, val) pairs (spec ``coo``) counts its
       6 bytes a pair and the scatter's write of the dense int16 pool;
-    - ``residuals``: the int16 levels and their rows read, the int32
-      pools (a zero slot each) written;
+    - ``residuals``: ``residual_work``: the int16 levels and their rows
+      read, the int32 pools (a zero slot each) written;
     - ``mc``, ``resid_add``: ``mc_work`` and ``resid_work``;
     - ``intra``: ``intra_work``'s bytes;
     - ``deblock``, ``sao``: ``loop_filter_work``'s two deblocking passes
@@ -180,9 +201,7 @@ def stage_b_work(args):
                            + (6 * coo_n + levels_b if coo_n else levels_b)
                            + table.rows.nbytes), 0)}
     sizes = [4 << c for c in range(4)]
-    pool_px = sum((S["nlv"][c] + 1) * s * s for c, s in enumerate(sizes))
-    work["residuals"] = (int(levels_b + sum(r.nbytes for r in rmeta)
-                             + 4 * pool_px), 0)
+    work["residuals"] = residual_work(rmeta)
     if S["n_refs"]:
         refs_l = torch.stack(list(refs_y))
         refs_c = refs_l if S["mono"] else torch.stack(list(refs_cb)

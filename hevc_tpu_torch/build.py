@@ -7,9 +7,9 @@ rebuilt when a source is newer; it lands in ``build/`` next to this file,
 which ``.gitignore`` lists.
 
 The wrappers (``mc_cuda``, ``intra_cuda``, ``filters_cuda``,
-``cabac_cuda``, ``probes``) share what is kept here: the tensor check, the
-error check and the launch counts.  Each launch of a kernel adds one to
-``launches[name]``; nothing else touches the counts.
+``resid_cuda``, ``cabac_cuda``, ``probes``) share what is kept here: the
+tensor check, the error check and the launch counts.  Each launch of a
+kernel adds one to ``launches[name]``; nothing else touches the counts.
 ``launches["tma_encode"]`` counts the tensor maps ``probes.tensor_map``
 encoded, which is host work and no launch.
 """
@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 launches = dict.fromkeys(("mc", "resid_add", "intra", "deblock", "sao",
-                          "cabac", "tile_shift", "tma_window", "tma_pipe",
-                          "tma_encode"), 0)
+                          "resid_tx", "cabac", "tile_shift", "tma_window",
+                          "tma_pipe", "tma_encode"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -120,6 +120,9 @@ def load() -> C.CDLL:
             lib.hevc_deblock_launch.restype = i
             lib.hevc_sao_launch.argtypes = [p, p]
             lib.hevc_sao_launch.restype = i
+            # the residual stage's ResidParams by address, and the stream
+            lib.hevc_resid_tx_launch.argtypes = [p, p]
+            lib.hevc_resid_tx_launch.restype = i
             lib.hevc_launch_floor.argtypes = [p, i, C.c_longlong, p]
             lib.hevc_launch_floor.restype = i
             lib.hevc_cabac_launch.argtypes = [p, i, p, i, i, p, i, p, i, p,

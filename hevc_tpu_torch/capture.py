@@ -6,9 +6,11 @@ wrappers (MC, residual add, intra wavefront, the loop filters) and the
 SHVC upsampler and times every stage with the card synchronised;
 ``StageInputs`` records the inputs of each stage of one ``frame_program``
 call, so that each stage can be timed alone; ``kernel_errors`` holds both
-inter kernels against their plain versions on captured inputs and
-``loop_filter_errors`` the loop filter kernels.  ``pipeline.py`` imports
-the stage functions by name, so they are patched in its namespace.
+inter kernels against their plain versions on captured inputs,
+``loop_filter_errors`` the loop filter kernels and ``residual_errors``
+the residual kernel (on ``captured_residuals``' inputs).  ``pipeline.py``
+imports the stage functions by name, so they are patched in its
+namespace.
 """
 from __future__ import annotations
 
@@ -254,6 +256,48 @@ def captured_filters(data, dev):
     with cap.installed():
         TorchDecoder(device=dev).decode_bytes(data)
     return cap.filters
+
+
+def captured_residuals(data, dev):
+    """Each picture's residual-stage inputs over one decode of ``data`` on
+    ``dev``: dicts with the picture's ``at`` ((layer, POC)), ``kind`` and
+    ``args``, the (levels, rmeta, bit depth, scaling banks) the frame
+    program handed ``residuals`` (nothing writes them).  Needs no card."""
+    from .decoder import TorchDecoder
+    calls, now = [], {}
+    orig_res, orig_finish = pipeline.residuals, pipeline.finish_frame
+
+    def finish(pic, lay, poc, device):
+        now["at"] = (lay.layer_id, poc)
+        now["kind"] = ("B" if getattr(pic, "ref_list_l1", None) else
+                       "P" if getattr(pic, "ref_list_l0", None) else "I")
+        return orig_finish(pic, lay, poc, device)
+
+    def residuals(levels, rmeta, bd, bank, tables):
+        calls.append({"at": now["at"], "kind": now["kind"],
+                      "args": (levels, rmeta, bd, bank)})
+        return orig_res(levels, rmeta, bd, bank, tables)
+
+    pipeline.finish_frame, pipeline.residuals = finish, residuals
+    try:
+        TorchDecoder(device=dev).decode_bytes(data)
+    finally:
+        pipeline.finish_frame, pipeline.residuals = orig_finish, orig_res
+    return calls
+
+
+def residual_errors(args):
+    """(largest |kernel - plain| over the four pools, launches): one
+    picture's captured residual inputs through ``resid_cuda.residuals`` and
+    its plain version, on their card."""
+    from . import build, resid_cuda
+    levels, rmeta, bd, bank = args
+    tables = tables_from_reference(rmeta[0].device)
+    before = build.launches["resid_tx"]
+    got = resid_cuda.residuals(levels, rmeta, bd, bank, tables)
+    launches = build.launches["resid_tx"] - before
+    want = resid_cuda.residuals_plain(levels, rmeta, bd, bank, tables)
+    return max(int((g - w).abs().max()) for g, w in zip(got, want)), launches
 
 
 def pick_picture(calls, kind):

@@ -1,8 +1,8 @@
 """The port's device-resident frame program and its host plumbing.
 
 Port of ``hevc_tpu/tpu/pipeline.py``: ``frame_program`` is
-``_pipeline_frame`` (residuals -> MC kernel -> residual-add kernel ->
-intra wavefront kernel -> deblocking kernels -> SAO kernel, then
+``_pipeline_frame`` (residual kernel -> MC kernel -> residual-add kernel
+-> intra wavefront kernel -> deblocking kernels -> SAO kernel, then
 edge-padding of the planes into the device DPB and one fused output
 buffer), ``finish_frame`` is ``finish_frame_pipeline``, ``LazyPlanes`` the
 deferred host fetch and ``pad_dev_refs`` seeds a device DPB from device
@@ -26,7 +26,7 @@ from .filters_cuda import deblock_planes, sao_planes
 from .intra import chunk_counts
 from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF, pack_frame
-from .recon import residuals
+from .resid_cuda import residuals
 from .tables import (dpb_from_numpy, pad_refs, tables_from_reference,
                      upload)
 
@@ -172,12 +172,12 @@ def frame_program(meta, meta16, meta8, avail_u8, levels16, scale_bank,
         avail.append(avail_d[apos:apos + n].view(n_chunks, S["B"][c], 128)
                      != 0)
         apos += n
+    # the int16 pool's classes as views: the residual kernel reads them
     lpos = 0
     levels = []
     for c, s in enumerate((4, 8, 16, 32)):
         n = S["nlv"][c] * s * s
-        levels.append(levels_d[lpos:lpos + n].view(S["nlv"][c], s, s)
-                      .to(I32))
+        levels.append(levels_d[lpos:lpos + n].view(S["nlv"][c], s, s))
         lpos += n
 
     with trace.span("dispatch.residuals"):

@@ -44,7 +44,7 @@ from .filters import _chroma_pass, _keep, _luma_pass, _t, sao_plane
 from .intra import chunk_counts
 from .intra_cuda import reconstruct_wavefront
 from .pack import PAD_REF
-from .recon import residuals
+from .resid_cuda import residuals
 from .tables import edge_pad, tables_from_reference, upload
 
 
@@ -327,7 +327,7 @@ def band_recon(pf, refs, bd, dev):
     cr)."""
     tables = tables_from_reference(dev)
     canvas = upload(pf.canvas, dev)
-    levels = [upload(v, dev) for v in pf.levels]
+    levels = [upload(np.asarray(v, np.int16), dev) for v in pf.levels]
     rmeta = [upload(m, dev) for m in pf.rmeta]
     bank = [upload(b, dev) for b in pf.scale_bank]
     resids = residuals(levels, rmeta, bd, bank, tables)

@@ -3,9 +3,10 @@
 Port of ``hevc_tpu/tpu/transforms.py``: all TUs of one size class are
 batched into [N, S, S] int32 tensors.  CUDA has no int32 matmul, so the
 two transform passes run as float64 matmuls, which are exact here: every
-partial sum is an integer with |acc| <= 32 * 90 * 32768 < 2^53.  The
-products sit outside any kernel of the JAX package, which left them to
-XLA, so they stay ``torch.matmul``.
+partial sum is an integer with |acc| <= 32 * 90 * 32768 < 2^53.  This is
+the plain version: the CPU's path (``resid_cuda.residuals`` on CPU
+tensors) and the reference the residual kernel (``csrc/resid.cu``), which
+the frame program runs on the card, is held to bit for bit.
 """
 from __future__ import annotations
 

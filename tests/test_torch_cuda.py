@@ -7,7 +7,9 @@ stream among them), the frame axis and the banded decode across processes
 over NCCL on every card; the sparse (COO) level upload; the intra
 wavefront kernel on the seeded random cases of hevc_tpu_torch.intra_cases;
 the loop filter kernels on the cases of hevc_tpu_torch.filter_cases and on
-1080p pictures of the benchmark's banks.
+1080p pictures of the benchmark's banks; the residual-stage kernel on the
+cases of hevc_tpu_torch.resid_cases and on pictures of the banks, one
+launch a frame program.
 Needs a card (marker `cuda`); skips without one.  This file imports only
 the port (no JAX, no hevc_tpu), so it runs on a machine that has only
 torch.  Run it with JAX kept off the card:
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 from hevc_tpu_torch import (build, filter_cases, filters, intra, intra_cuda,
-                            mc_cuda, pipeline, trace)
+                            mc_cuda, pipeline, recon, resid_cases, trace)
 from hevc_tpu_torch.intra_cases import random_case
 from hevc_tpu_torch.mc import mc_plain, resid_add_plain
 from hevc_tpu_torch.pack import DUMP, DUMP16, PAD_REF
@@ -368,6 +370,63 @@ def test_no_picture_reaches_the_plain_filters_on_card(card, monkeypatch,
     assert {k: build.launches[k] for k in on} == on and on["deblock"] == 2 * n
     assert trace.report()["loop_filter_launches"]["total"] == \
         on["deblock"] + on["sao"]
+
+
+# ---------------------------------------------------------------------------
+# the residual-stage kernel (csrc/resid.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", sorted(resid_cases.CASES))
+def test_residual_kernel_matches_plain_on_card(card, name, seed):
+    from hevc_tpu_torch.capture import residual_errors
+    err, launches = residual_errors(
+        resid_cases.tensors(resid_cases.make(name, seed), card)[:4])
+    torch.cuda.synchronize()
+    assert (err, launches) == (0, 1), (name, err, launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank", sorted(resid_cases.BANK_PICTURES))
+def test_residual_kernel_matches_plain_on_bank_pictures_on_card(card, bank):
+    """The first access units of a bank's first segment decoded on the card
+    with the residual stage's inputs captured: the kernel against the plain
+    version on an IDR, a P and a leaf B (RA), an IDR (intra), the base
+    layer's IDR and an enhancement-layer P (SHVC)."""
+    from hevc_tpu_torch.capture import (bank_prefix, captured_residuals,
+                                        pick_picture, residual_errors)
+    n_aus, picks = resid_cases.BANK_PICTURES[bank]
+    calls = captured_residuals(bank_prefix(os.path.join(
+        os.path.dirname(BANKS), bank), n_aus), card)
+    for kind, layer in picks:
+        call = pick_picture([c for c in calls if c["at"][0] == layer], kind)
+        assert call["args"][0][0].dtype == torch.int16
+        assert residual_errors(call["args"]) == (0, 1), (bank, call["at"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ipp_wpp", "mono", "main10_422_filters",
+                                  "rext_ccp", "rext_explicit_rdpcm"])
+def test_no_picture_reaches_the_plain_residual_stage_on_card(
+        card, monkeypatch, name):
+    """A stream decoded on the card: one residual launch a frame program,
+    counted by the trace too, and never the plain transforms."""
+    from torch_streams import (CONFIGS, FORMATS, INLINE_ONLY, decode_port,
+                               encode_config)
+
+    def refused(*_a, **_k):
+        raise AssertionError("the plain residual stage ran on the card")
+
+    monkeypatch.setattr(recon, "residual_batch", refused)
+    data = FORMATS[name]() if name in FORMATS else \
+        encode_config(*{**CONFIGS, **INLINE_ONLY}[name])
+    build.reset_launches()
+    trace.reset()
+    frames, n = decode_port(data, card)
+    assert all(md5 is True for _p, md5, _poc in frames) and n == len(frames)
+    assert build.launches["resid_tx"] == n
+    assert trace.report()["residual_launches"]["total"] == n
 
 
 # ---------------------------------------------------------------------------
