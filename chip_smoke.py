@@ -119,13 +119,12 @@
    ``pgop_frame.decode_frame_parallel`` over the cards: B1-B4 one batch,
    every picture's MD5 correct and every plane equal to the sequential
    decode, 0 references from the host, ``mc`` once per inter picture;
-10. the bench phase (right after step 4): the main stream through
-   ``python -m hevc_tpu_torch.bench``'s stage-B functions (``bench.bench_stages``): its
-   last P picture's frame program replayed 16 times (each replay equal to
-   the decode, replays a second), each stage alone on that picture's
-   inputs by CUDA events beside its bound (``bounds.stage_b_work``), and,
-   at the end, the replays' device-busy time and idle share from a
-   ``torch.profiler`` trace;
+10. the stage-B phase (right after step 4): the main stream through
+   ``capture.stage_timings``: its last P picture's frame program replayed
+   16 times (each replay equal to the decode, replays a second), each
+   stage alone on that picture's inputs by CUDA events beside its bound
+   (``bounds.stage_b_work``), and, at the end, the replays' device-busy
+   time and idle share from a ``torch.profiler`` trace;
 11. the probe path: with the launch counts at 0, runs
    ``hevc_tpu_torch.probes.run_probes`` (tile roll and slice, the roll of
    an 8K plane, the five TMA window cases of ``tools/probe_dma.py``, the
@@ -171,8 +170,10 @@ import numpy as np
 from hevc_tpu_torch.bounds import (HBM_BYTES_S, bound_ms, intra_work,
                                    loop_filter_work, mc_work, resid_work,
                                    residual_work)
-from hevc_tpu_torch.capture import Capture, intra_args, kernel_errors
+from hevc_tpu_torch.capture import (Capture, intra_args, kernel_errors,
+                                    stage_timings)
 from hevc_tpu_torch.device import cuda_ms, profiler_ms
+from hevc_tpu_torch.encoder.generate import synth_stream
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # (kernel name, launch) of each kernel to trace with torch.profiler once
@@ -182,8 +183,8 @@ PROFILE = []
 # (kernel name, the one PyTorch call for the same function): traced there
 # too, every kernel and copy of the call summed
 PROFILE_LIBRARY = []
-# (bench.Replay, replays) of phase_bench: their device-busy time is traced
-# there too
+# (capture.Replay, replays) of phase_stage_b: their device-busy time is
+# traced there too
 PROFILE_REPLAYS = []
 # the device time between two back-to-back empty launches, ms: (queued on
 # the card, as the host issues them); the intra kernel's chain bound is the
@@ -208,39 +209,6 @@ STREAM = os.path.join(CACHE, f"smoke_{W}x{H}_qp{QP}_ctb64_wpp_{FRAMES}f.265")
 
 def log(*a):
     print(*a, flush=True)
-
-
-def synth_stream(path, w, h, qp, frames, wpp=True, log2_ctb=6, **extra):
-    """IPP stream with the settings of bench.py's _synth_stream; ``extra``
-    overrides or adds encoder settings (the format streams')."""
-    from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
-    from hevc_tpu_torch.encoder.generate import synth_frame
-    kw = dict(width=w, height=h, qp=qp, log2_ctb_size=log2_ctb,
-              log2_cu_size=log2_ctb, deblocking=True, sao=True, seed=1,
-              gop="ipp", search_range=3, wpp=wpp)
-    kw.update(extra)
-    cfg = EncoderConfig(**kw)
-    enc = IntraEncoder(cfg)
-    base = synth_frame("gradient", w, h, 0, seed=9)
-    cf, bd = cfg.chroma_format_idc, cfg.bit_depth
-    data = bytearray()
-    for t in range(frames):
-        planes = [np.roll(base[0], (t * 4, t * 7), (0, 1))]
-        for c in base[1:] if cf else ():
-            c = np.roll(c, (t * 2, t * 3), (0, 1))
-            if cf == 2:      # 4:2:2: chroma at the luma's height
-                c = np.repeat(c, 2, 0)
-            elif cf == 3:
-                c = np.repeat(np.repeat(c, 2, 0), 2, 1)
-            planes.append(c)
-        if bd > 8:
-            planes = [p.astype(np.int32) << (bd - 8) for p in planes]
-        data += enc.encode_frame(planes)
-    tmp = path + f".{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
-    return path
 
 
 # the formats phase's 1920x1080 streams: synth_stream's settings plus these
@@ -843,31 +811,27 @@ def phase_residuals(dev, smi):
     return next(v for k, v in rows.items() if k.startswith("main1080/ra P"))
 
 
-def phase_bench(dev, smi):
-    """The main stream through the stage-B functions of ``python -m
-    hevc_tpu_torch.bench`` (``bench.bench_stages``, no new encode): its last
-    P picture's frame program replayed 16 times, every replay equal to the
-    decode, then each stage alone on that picture's inputs (16 calls
-    between CUDA events) beside its bound, both inter kernels against their
-    plain versions.  The replays' device-busy time and idle share are
-    traced at the end (``PROFILE_REPLAYS``)."""
-    from hevc_tpu_torch import bench
-    tag = os.path.splitext(os.path.basename(STREAM))[0]
-    cfg = bench.Stages(bench.Stream(tag, W, H, QP, FRAMES, True), "smoke")
-    assert cfg.stream.path == STREAM, cfg.stream.path
-    rep, out = bench.bench_stages(cfg, dev)
+def phase_stage_b(dev, smi):
+    """The main stream through ``capture.stage_timings`` (no new encode):
+    its last P picture's frame program replayed 16 times, every replay
+    equal to the decode, then each stage alone on that picture's inputs
+    (16 calls between CUDA events) beside its bound, both inter kernels
+    against their plain versions.  The replays' device-busy time and idle
+    share are traced at the end (``PROFILE_REPLAYS``)."""
+    iters = 16
+    rep, out = stage_timings(STREAM, dev, iters, "smoke")
     assert out["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}, out
-    PROFILE_REPLAYS.append((rep, cfg.iters))
-    log(f"bench stage B, main stream's last P picture: {rep.count} replays "
+    PROFILE_REPLAYS.append((rep, iters))
+    log(f"stage-B replay, main stream's last P picture: {rep.count} replays "
         f"of its frame program equal to the decode, "
         f"{out['stageB_replay_fps_smoke']} replays a second (card "
         f"synchronised); kernels == plain versions (error 0) ({smi})")
     for k, us in out["kernel_us"].items():
-        log(f"bench stage {k}: {us} us by CUDA events, bound "
+        log(f"stage-B replay, stage {k}: {us} us by CUDA events, bound "
             f"{out['kernel_bound_us'][k]} us ({out['kernel_bound_by'][k]}, "
             f"{out['kernel_bytes'][k]} B), {out['kernel_gbps'][k]} GB/s "
             f"({smi})")
-    log(f"bench elementwise roofline (p + 1 over the luma plane): "
+    log(f"stage-B replay, elementwise roofline (p + 1 over the luma plane): "
         f"{out['kernel_gbps']['roofline_elementwise']} GB/s ({smi})")
 
 
@@ -2062,7 +2026,7 @@ def run(smi, dev):
     real = phase_real_kernels(cap, dev, smi)
     loop_filter = phase_loop_filter(dev, smi)
     resid_tx = phase_residuals(dev, smi)
-    phase_bench(dev, smi)
+    phase_stage_b(dev, smi)
     sparse = {STREAM: [s["coo"] for s in seen]}
     for name in FORMATS:
         sparse[format_path(name)] = [
@@ -2141,7 +2105,7 @@ def run(smi, dev):
         f"kernel alone): {rt} ({smi})")
     for rep, iters in PROFILE_REPLAYS:
         busy, idle = rep.profiled(iters)
-        log(f"bench stage-B trace, {rep.name}: device-busy {busy} ms a replay"
+        log(f"stage-B trace, {rep.name}: device-busy {busy} ms a replay"
             f" ({1e3 / busy} device fps), idle share {idle} over {iters} "
             f"replays (torch.profiler) ({smi})")
     blocked = sorted(m for m in sys.modules

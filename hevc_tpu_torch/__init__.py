@@ -7,22 +7,23 @@ paths (``bitstream/``, ``cabac/``, ``coding/``, ``ops/``, ``io/``,
 built with ``g++`` into ``build/``).  ``decoder/core.py`` is the stream
 decoder with the port's stage B behind ``recon_backend="torch"``: the
 host pack (``pack.py``) and the frame program (``pipeline.py``) on a
-torch device, three stages of which (motion compensation, the inter
-residual add and the intra wavefront) are kernels written by hand in
-CUDA C++ for Hopper (``csrc/``).  ``hevc_tpu`` stays the bit-exact
-reference.
+torch device, six stages of which (the residual transform, motion
+compensation, the inter residual add, the intra wavefront, deblocking and
+SAO) are kernels written by hand in CUDA C++ for Hopper (``csrc/``).
+``hevc_tpu`` stays the bit-exact reference.
 
 Entry points: ``TorchDecoder`` (``Decoder(recon_backend="torch")``) and
 ``python -m hevc_tpu_torch.cli``.  Several devices: ``band.py`` and
 ``sharded.py`` decode a tile-coded stream in column bands with halo
 exchange (``python -m hevc_tpu_torch.dist_worker`` across processes),
 ``pgop_frame.py`` the pictures of a dependency batch side by side.
-``python -m hevc_tpu_torch.bench`` is the port's benchmark (the
-counterpart of ``bench.py``; ``bounds.py`` and ``capture.py`` hold its
-work counts and stage captures).  Beside the decoder, ``cabac/rows.py``
-ports the on-device CABAC engine (``hevc_tpu/tpu/cabac_pallas.py``;
-``python -m hevc_tpu_torch.cabac.rows``) and ``probes.py`` the Mosaic
-probes of ``tools/``, each with its Hopper kernel in ``csrc/``.
+``python3 -m benchmark.run`` measures the port through ``api.py``;
+``bounds.py`` holds the stages' work counts and ``capture.py`` the stage
+captures, replays and timings of ``chip_smoke.py``.  Beside the decoder,
+``cabac/rows.py`` ports the on-device CABAC engine
+(``hevc_tpu/tpu/cabac_pallas.py``; ``python -m hevc_tpu_torch.cabac.rows``)
+and ``probes.py`` the Mosaic probes of ``tools/``, each with its Hopper
+kernel in ``csrc/``.
 """
 from .device import resolve_device
 

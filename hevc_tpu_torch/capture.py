@@ -1,5 +1,5 @@
-"""Captures of what the frame program hands its stages, for the checks and
-timings of ``chip_smoke.py`` and ``python -m hevc_tpu_torch.bench``.
+"""Captures of what the frame program hands its stages, and replays of it,
+for the checks and timings of ``chip_smoke.py``.
 
 ``Capture`` records, over a whole decode, the inputs of the kernel
 wrappers (MC, residual add, intra wavefront, the loop filters) and the
@@ -8,13 +8,19 @@ SHVC upsampler and times every stage with the card synchronised;
 call, so that each stage can be timed alone; ``kernel_errors`` holds both
 inter kernels against their plain versions on captured inputs,
 ``loop_filter_errors`` the loop filter kernels and ``residual_errors``
-the residual kernel (on ``captured_residuals``' inputs).  ``pipeline.py``
-imports the stage functions by name, so they are patched in its
-namespace.
+the residual kernel (on ``captured_residuals``' inputs).
+``capture_frame_program`` keeps a stream's last P picture's frame program
+call, ``Replay`` replays it (every replay equal to the decode; timed, or
+traced by ``torch.profiler`` and read by ``busy_ms``), and
+``stage_timings`` times each of its six stages alone, each a hand kernel
+on the card: the residual transform, MC, the residual add, the intra
+wavefront, deblocking and SAO.  ``pipeline.py`` imports the stage
+functions by name, so they are patched in its namespace.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
@@ -23,8 +29,24 @@ import numpy as np
 import torch
 
 from . import filters_cuda, mc_cuda, pipeline, upsample
+from .bounds import bound_ms, stage_b_work
+from .device import cuda_ms
 from .mc import mc_plain, resid_add_plain
 from .tables import tables_from_reference
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# where ``Replay.profiled`` writes its trace
+CACHE = os.path.join(ROOT, ".bench")
+# the kinds of device activity in a torch.profiler trace that keep the
+# card busy
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the kernel_us name of each stage ``StageInputs`` records, and of its
+# term in ``stage_b_work``
+STAGE_KEYS = {"residuals": "dequant_idct", "mc": "mc",
+              "resid_add": "resid_add",
+              "reconstruct_wavefront": "intra_wavefront",
+              "intra": "intra_wavefront", "deblock_planes": "deblock",
+              "deblock": "deblock", "sao_planes": "sao", "sao": "sao"}
 
 
 class Capture:
@@ -217,6 +239,180 @@ def kernel_errors(mc_args, resid_args):
     got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
     want = resid_add_plain(canvas.clone(), fields, pools, bd)
     return mc_err, int((got - want).abs().max())
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def capture_frame_program(data, dev):
+    """Decode ``data`` once (every MD5 checked) with
+    ``pipeline.frame_program`` wrapped; returns (arguments, fused output)
+    of the last P picture's call, its reference planes copied (the
+    decoder's device DPB drops them later)."""
+    from .decoder import TorchDecoder
+    got = []
+    orig = pipeline.frame_program
+
+    def wrapper(*args):
+        out = orig(*args)
+        if args[7]:                       # refs_y: an inter picture
+            refs = tuple([r.clone() for r in args[i]] for i in (7, 8, 9))
+            got[:] = [(args[:7] + refs + args[10:], out[0].clone())]
+        return out
+
+    pipeline.frame_program = wrapper
+    try:
+        frames = TorchDecoder(check_md5=True, device=dev).decode_bytes(data)
+        bad = [f.poc for f in frames if f.md5_ok is not True]
+    finally:
+        pipeline.frame_program = orig
+    if bad:
+        raise RuntimeError(f"capture: MD5 wrong on POCs {bad}")
+    if not got:
+        raise RuntimeError("capture: the stream has no P picture")
+    return got[0]
+
+
+def busy_ms(trace_path):
+    """The union of the device activity intervals (kernels, copies, sets)
+    in a ``torch.profiler`` chrome trace, in ms."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in events
+                if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    if not iv:
+        raise RuntimeError(f"{trace_path}: no device activity in the trace")
+    total, (lo, hi) = 0.0, iv[0]
+    for a, b in iv[1:]:
+        if a > hi:
+            total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (total + hi - lo) / 1e3
+
+
+class Replay:
+    """A captured frame program call, replayed: every replay's fused
+    output must equal the decode's, bit for bit."""
+
+    def __init__(self, args, want, dev, name):
+        self.args, self.want, self.dev, self.name = args, want, dev, name
+        self.count = 0
+
+    def run(self, iters):
+        outs = [pipeline.frame_program(*self.args)[0] for _ in range(iters)]
+        for k, out in enumerate(outs):
+            if not torch.equal(out, self.want):
+                raise RuntimeError(f"stage-B replay {self.count + k} of "
+                                   f"{self.name} differs from the decode")
+        self.count += iters
+        return outs
+
+    def timed(self, iters):
+        """Replays a second of wall clock, card synchronised."""
+        self.run(1)
+        _sync(self.dev)
+        t0 = time.perf_counter()
+        self.run(iters)
+        _sync(self.dev)
+        return iters / (time.perf_counter() - t0)
+
+    def profiled(self, iters):
+        """(device-busy ms a replay, idle share) over ``iters`` replays
+        traced by ``torch.profiler``: busy is the union of the device
+        activity in the trace (``CACHE/trace_stageB_<name>.json``), idle
+        1 - busy / the host's wall clock over the traced replays (card
+        synchronised)."""
+        from torch.profiler import ProfilerActivity, profile
+        self.run(1)
+        _sync(self.dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            self.run(iters)
+            _sync(self.dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        os.makedirs(CACHE, exist_ok=True)
+        path = os.path.join(CACHE, f"trace_stageB_{self.name}.json")
+        prof.export_chrome_trace(path)
+        busy = busy_ms(path)
+        return busy / iters, 1.0 - busy / wall
+
+
+def stage_timings(path, dev, iters, name):
+    """The last P picture's frame program of the stream at ``path``
+    replayed ``iters`` times (replays a second, card synchronised; None on
+    the CPU), then each stage alone on the inputs it had in one call (16
+    calls between CUDA events) beside its bound from
+    ``bounds.stage_b_work``; both inter kernels against their plain
+    versions.  Returns (Replay, {key: value}), the keys of one stage
+    ending in ``_<name>``.  ``Replay.profiled`` gives the device-busy time
+    later, after every other timing (a profiler session slows the rest of
+    the process)."""
+    with open(path, "rb") as f:
+        args, want = capture_frame_program(f.read(), dev)
+    rep = Replay(args, want, dev, name)
+    if dev.type == "cuda":
+        fps = rep.timed(iters)
+    else:
+        rep.run(iters)
+        fps = None
+    rec = StageInputs()
+    with rec.installed():
+        flat = pipeline.frame_program(*args)[0]
+    if not torch.equal(flat, rep.want):
+        raise RuntimeError("stages: the recorded call differs from the "
+                           "decode")
+    calls = rec.calls
+    if len({STAGE_KEYS[n] for n in calls}) != 6:
+        raise RuntimeError(f"stages: the P picture ran only {sorted(calls)}")
+    mc_err, ra_err = kernel_errors(calls["mc"][1], calls["resid_add"][1])
+    if mc_err or ra_err:
+        raise RuntimeError(f"stages: kernels != plain versions (mc "
+                           f"{mc_err}, resid_add {ra_err})")
+    stage_work = stage_b_work(args)
+    work = {f"{STAGE_KEYS[n]}_{name}": stage_work[n] for n in (
+        "residuals", "mc", "resid_add", "intra", "deblock", "sao")}
+    y = calls["sao_planes"][1][0][0]
+    bounds = {k: bound_ms(*v) for k, v in work.items()}
+    out = {"kernel_max_abs_err": {"mc": mc_err, "resid_add": ra_err},
+           "kernel_bytes": {k: v[0] for k, v in work.items()},
+           "kernel_bound_us": {k: b[0] * 1e3 for k, b in bounds.items()},
+           "kernel_bound_by": {k: b[1] for k, b in bounds.items()},
+           f"stageB_replay_fps_{name}": fps,
+           f"stageB_replays_{name}": rep.count,
+           "kernel_us": None, "kernel_gbps": None}
+    if dev.type == "cuda":
+        us = {}
+        for stage, (fn, a, k) in calls.items():
+            if stage in ("mc", "resid_add", "reconstruct_wavefront"):
+                # the kernels write their canvas in place
+                a = (a[0].clone(),) + tuple(a[1:])
+            if stage == "deblock_planes":
+                # deblocking writes its planes in place: each timed call
+                # filters a fresh copy of the recorded ones, less the copy
+                src, planes = a[0], [p.clone() for p in a[0]]
+
+                def fresh(src=src, planes=planes):
+                    for t, p in zip(planes, src):
+                        t.copy_(p)
+
+                def run(fn=fn, planes=planes, a=a, k=k, fresh=fresh):
+                    fresh()
+                    fn(planes, *a[1:], **k)
+                ms = cuda_ms(run, iters=16) - cuda_ms(fresh, iters=16)
+            else:
+                ms = cuda_ms(functools.partial(fn, *a, **k), iters=16)
+            us[f"{STAGE_KEYS[stage]}_{name}"] = ms * 1e3
+        ew = cuda_ms(lambda: y + 1, iters=16) * 1e3
+        gbps = {"roofline_elementwise": y.numel() * 4 * 2 / 1e6 / (ew / 1e3)}
+        for k, v in work.items():
+            gbps[k] = v[0] / 1e3 / us[k]
+        out["kernel_us"], out["kernel_gbps"] = us, gbps
+    return rep, out
 
 
 def loop_filter_errors(call):

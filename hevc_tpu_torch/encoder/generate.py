@@ -14,6 +14,7 @@ Copied from ``hevc_tpu/encoder/generate.py`` at e99b487.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -43,6 +44,41 @@ def synth_frame(kind: str, w: int, h: int, t: int, seed: int = 0):
     cr = np.clip(128 + 40 * np.cos(yc / 17.0 - t), 0, 255).astype(np.uint8)
     cr = np.broadcast_to(cr, (ch, cw)).copy()
     return [luma, cb, cr]
+
+
+def synth_stream(path, w, h, qp, frames, wpp=True, kind="gradient", seed=9,
+                 log2_ctb=6, **extra):
+    """Writes to ``path`` an IPP stream of one ``synth_frame`` picture
+    rolled a little each frame, with the settings of the root ``bench.py``'s
+    ``_synth_stream`` (the same bytes for its arguments); ``extra``
+    overrides or adds encoder settings, the chroma format and bit depth
+    among them.  Returns ``path``."""
+    kw = dict(width=w, height=h, qp=qp, log2_ctb_size=log2_ctb,
+              log2_cu_size=log2_ctb, deblocking=True, sao=True, seed=1,
+              gop="ipp", search_range=3, wpp=wpp)
+    kw.update(extra)
+    cfg = EncoderConfig(**kw)
+    enc = IntraEncoder(cfg)
+    base = synth_frame(kind, w, h, 0, seed=seed)
+    cf, bd = cfg.chroma_format_idc, cfg.bit_depth
+    data = bytearray()
+    for t in range(frames):
+        planes = [np.roll(base[0], (t * 4, t * 7), (0, 1))]
+        for c in base[1:] if cf else ():
+            c = np.roll(c, (t * 2, t * 3), (0, 1))
+            if cf == 2:      # 4:2:2: chroma at the luma's height
+                c = np.repeat(c, 2, 0)
+            elif cf == 3:
+                c = np.repeat(np.repeat(c, 2, 0), 2, 1)
+            planes.append(c)
+        if bd > 8:
+            planes = [p.astype(np.int32) << (bd - 8) for p in planes]
+        data += enc.encode_frame(planes)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+    return path
 
 
 def read_yuv_frames(path: str, w: int, h: int, n: int):

@@ -14,9 +14,8 @@ from hevc_tpu_torch.decoder import Decoder
 from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder, RaEncoder
 from hevc_tpu_torch.encoder.generate import synth_frame
 from hevc_tpu_torch.io.parser import split_access_units
-from torch_gate import native_ready
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 CPU = "cpu"
 

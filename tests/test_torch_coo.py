@@ -32,9 +32,8 @@ from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
 from hevc_tpu_torch.encoder.generate import synth_frame
 from hevc_tpu_torch.pack import (COO_MIN, _level_rows, coo_pairs, pack_frame,
                                  sparse_levels)
-from torch_gate import native_ready
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 CPU = torch.device("cpu")
 W, H = 256, 192

@@ -949,28 +949,26 @@ def test_dist_worker_over_nccl_on_card(card, tmp_path):
 
 
 @pytest.mark.cuda
-def test_bench_720p_config_on_card(card):
-    """``python -m hevc_tpu_torch.bench --config 720p`` as a function: the
-    card's name, both inter kernels equal to their plain versions on the
-    captured P picture, every key of the configuration present and every
-    time measured."""
-    from hevc_tpu_torch import bench
-    got = bench.run({"720p": bench.CONFIGS["720p"]}, card)
-    assert got["device"]["name"] == torch.cuda.get_device_name(card)
-    assert got["device"]["power_limit"].endswith("W")
-    extra = got["extra"]
-    assert extra["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}
+def test_stage_timings_720p_on_card(card, tmp_path):
+    """The root ``bench.py``'s 1280x720 QP 30 stream without WPP (3
+    frames) through ``capture.stage_timings``: both inter kernels equal to
+    their plain versions on the captured P picture, every stage timed
+    beside its bound, the replays timed and then traced."""
+    from hevc_tpu_torch.capture import stage_timings
+    from hevc_tpu_torch.encoder.generate import synth_stream
+    path = synth_stream(str(tmp_path / "v2ipp_1280x720_qp30_ctb64_filt.265"),
+                        1280, 720, 30, 3, False)
+    rep, out = stage_timings(path, card, 16, "720p")
+    assert out["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}
     stages = {f"{k}_720p" for k in ("dequant_idct", "mc", "resid_add",
                                     "intra_wavefront", "deblock", "sao")}
-    assert set(extra["kernel_us"]) == stages
-    assert set(extra["kernel_gbps"]) == stages | {"roofline_elementwise"}
-    assert set(extra["kernel_bound_us"]) == stages
-    for k in ("stageB_replay_fps_720p", "stageB_720p_device_fps",
-              "device_stageB_fps_720p", "device_stageB_busy_ms_720p"):
-        assert extra[k] is not None and extra[k] > 0, k
-    assert extra["device_idle_share_720p"] < 1
-    assert extra["stageB_replays_720p"] == 2 * (16 + 1)
-    assert extra["section_s"]["stages 720p"] > 0
+    assert set(out["kernel_us"]) == stages
+    assert set(out["kernel_gbps"]) == stages | {"roofline_elementwise"}
+    assert set(out["kernel_bound_us"]) == stages
+    assert out["stageB_replay_fps_720p"] > 0
+    busy, idle = rep.profiled(16)
+    assert busy > 0 and idle < 1
+    assert rep.count == out["stageB_replays_720p"] + 16 + 1 == 2 * (16 + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -21,10 +21,9 @@ from hevc_tpu.decoder.core import Decoder
 from hevc_tpu_torch import native as port_native
 from hevc_tpu_torch.decoder import TorchDecoder
 from hevc_tpu_torch.pipeline import LazyPlanes
-from torch_gate import native_ready
 from torch_streams import (FORMATS, assert_same, decode_port, planes_of)
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 NAMES = [k for k in FORMATS if not k.startswith(("dep_", "rext_"))]
 

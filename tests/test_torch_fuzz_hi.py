@@ -6,9 +6,8 @@ import pytest
 from hevc_tpu import native
 from test_torch_fuzz_lo import check_fuzz_seed
 from torch_fuzz import N_CONFIGS
-from torch_gate import native_ready
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 
 

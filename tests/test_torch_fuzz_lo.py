@@ -15,10 +15,9 @@ import pytest
 from hevc_tpu import native
 from hevc_tpu.decoder.core import Decoder
 from torch_fuzz import N_CONFIGS, fuzz_stream, sample_config
-from torch_gate import native_ready
 from torch_streams import assert_same, decode_port, planes_of
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 
 

@@ -19,9 +19,8 @@ from hevc_tpu_torch.filters import deblock, sao_plane
 from hevc_tpu_torch.intra import reconstruct_wavefront
 from hevc_tpu_torch.tables import tables_from_reference
 from test_torch_pipeline import decoded
-from torch_gate import native_ready
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 TABLES = tables_from_reference(torch.device("cpu"))
 CASES = [("ipp_wpp", k) for k in range(3)]  # the I frame and two P frames

@@ -42,7 +42,6 @@ from hevc_tpu_torch.intra_cases import (EMPTY_CHUNKS, MODES, modes_of,
 from hevc_tpu_torch.pack import DUMP
 from hevc_tpu_torch.tables import tables_from_reference
 from test_pipeline import CONFIGS as PIPELINE_CONFIGS
-from torch_gate import native_ready
 from torch_streams import encode_config, shvc_stream
 
 CPU = torch.device("cpu")
@@ -456,7 +455,7 @@ def _band_records():
 SCHEDULE_STREAMS = sorted(PIPELINE_CONFIGS) + ["shvc_x2", "banded_ipp4"]
 
 
-@pytest.mark.skipif(not native_ready(native),
+@pytest.mark.skipif(not native.available(),
                     reason="native toolchain unavailable")
 @pytest.mark.parametrize("name", SCHEDULE_STREAMS)
 def test_no_record_reads_what_its_own_chunk_writes(name):

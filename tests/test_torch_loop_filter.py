@@ -28,7 +28,6 @@ from hevc_tpu_torch import (build, filter_cases, filters, filters_cuda,
 from hevc_tpu_torch.bounds import loop_filter_work
 from hevc_tpu_torch.tables import tables_from_reference
 from loop_filter_host import SRC, build_host_lib, host_filters
-from torch_gate import native_ready
 from torch_streams import CONFIGS, decode_port, encode_config
 
 CPU = torch.device("cpu")
@@ -134,7 +133,7 @@ def test_wrapper_takes_the_plain_path_on_the_cpu(name):
     assert "loop_filter_launches" not in trace.report()
 
 
-@pytest.mark.skipif(not native_ready(native),
+@pytest.mark.skipif(not native.available(),
                     reason="native toolchain unavailable")
 @pytest.mark.parametrize("name", ["ipp_wpp", "slices_pcm", "mono"])
 def test_frame_program_filters_through_the_wrapper_on_the_cpu(

@@ -9,7 +9,6 @@ import sys
 import pytest
 
 from hevc_tpu_torch import native
-from torch_gate import native_ready
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,7 +49,7 @@ print("MODULES", len(mods), "BLOCKED", loaded, "RC", rc)
 """
 
 
-@pytest.mark.skipif(not native_ready(native),
+@pytest.mark.skipif(not native.available(),
                     reason="native toolchain unavailable")
 def test_port_decodes_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -26,10 +26,9 @@ from hevc_tpu_torch import pipeline as PP
 from hevc_tpu_torch.decoder import TorchDecoder
 from hevc_tpu_torch.pipeline import frame_program
 from hevc_tpu_torch.tables import dpb_from_numpy
-from torch_gate import native_ready
 from torch_streams import CONFIGS, INLINE_ONLY, encode_config
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 CPU = torch.device("cpu")
 

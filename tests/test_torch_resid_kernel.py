@@ -148,9 +148,8 @@ def test_kernel_code_decodes_the_rext_streams(host, monkeypatch, name):
     """The stream through ``TorchDecoder`` on the CPU with the kernel's
     code in place of the plain residual stage: every MD5 correct, every
     plane the inline decoder's, and the tools' columns set."""
-    from torch_gate import native_ready
     from hevc_tpu_torch import native
-    if not native_ready(native):
+    if not native.available():
         pytest.skip("native toolchain unavailable")
     from torch_streams import FORMATS, assert_same, decode_inline, \
         decode_port

@@ -16,10 +16,9 @@ from hevc_tpu import native
 from hevc_tpu.decoder.core import Decoder
 from hevc_tpu_torch import pipeline as PP
 from hevc_tpu_torch.decoder import TorchDecoder
-from torch_gate import native_ready
 from torch_streams import SHVC, assert_same, planes_of, shvc_stream
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 
 

@@ -1,18 +1,15 @@
-"""``python -m hevc_tpu_torch.bench`` on the CPU, at tiny sizes.
+"""The stage-B replay and stage timings of ``hevc_tpu_torch.capture`` and
+the IPP stream generator of ``hevc_tpu_torch.encoder.generate``, on the
+CPU at tiny sizes.
 
-Every section runs through the functions of the real configurations on
-128x64-class streams with ``device="cpu"`` (the kernels' plain versions):
-the port's stream generator against the root ``bench.py``'s, byte for byte;
-each section's keys; the stage-B replay against the decode; the JSON line
-of ``main`` with every time null; the work counts of ``bounds`` against a
-NumPy recount; the decoder's worker threads shut down after a decode that
-returns or raises; ``dist_worker`` with its bands over two devices and
-``--reps``; and the bench's imports.
+The generator against the root ``bench.py``'s, byte for byte; the
+replay of a P picture's frame program against the decode; each stage's
+inputs, work counts and bounds (``bounds`` against a NumPy recount); the
+decoder's worker threads shut down after a decode that returns or raises;
+``dist_worker`` with its bands over two devices and ``--reps``; and the
+imports of both modules.
 """
 import ast
-import contextlib
-import io
-import json
 import os
 import socket
 import subprocess
@@ -24,68 +21,47 @@ import pytest
 import torch
 
 import bench as jax_bench
-from hevc_tpu_torch import bench as B
 from hevc_tpu_torch import pipeline
 from hevc_tpu_torch.bounds import (STAGE_B_TERMS, loop_filter_work, mc_work,
                                    resid_work, stage_b_work)
-from hevc_tpu_torch.capture import StageInputs
+from hevc_tpu_torch.capture import (Replay, StageInputs,
+                                    capture_frame_program, stage_timings)
 from hevc_tpu_torch.decoder import Decoder
+from hevc_tpu_torch.encoder.generate import synth_stream
 from hevc_tpu_torch.mc_cuda import mc_table
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 
-TINY = {
-    "tiny": B.Frames(B.Stream("t_128x64", 128, 64, 30, 3, True), "tiny",
-                     iters=2, link=True, headline=True),
-    "tiny_stages": B.Stages(B.Stream("t_128x64_nowpp", 128, 64, 30, 3,
-                                     False), "tiny720", iters=2),
-    "tiny_multihost": B.Multihost(B.TileStream("t_128x64_t2", 128, 64, 32,
-                                               2, 2)),
-    "tiny_shvc": B.Shvc(B.ShvcPair("t_shvc2", "t_shvc1", (64, 64),
-                                   (128, 128), 2)),
-}
-
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
-    """The tiny configurations, their streams encoded into a cache of
-    their own."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(B, "CACHE", str(tmp_path_factory.mktemp("bench")))
-        for name, cfg in TINY.items():
-            mp.setitem(B.CONFIGS, name, cfg)
-        B.ensure_streams([j for c in TINY.values() for j in c.jobs()])
-        yield TINY
+    """{"wpp", "nowpp"}: 128x64 IPP streams of three pictures at QP 30,
+    with and without WPP."""
+    d = tmp_path_factory.mktemp("streams")
+    return {k: synth_stream(str(d / f"t_128x64_{k}.265"), 128, 64, 30, 3,
+                            k == "wpp") for k in ("wpp", "nowpp")}
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
 
 
 @pytest.mark.parametrize("kind", ["gradient", "noise"])
 def test_port_stream_is_bench_py_stream(tmp_path, kind):
     ours, theirs = tmp_path / "ours.265", tmp_path / "theirs.265"
-    B._synth_stream(str(ours), 128, 64, 30, 2, True, kind)
+    synth_stream(str(ours), 128, 64, 30, 2, True, kind)
     jax_bench._synth_stream(str(theirs), 128, 64, 30, 2, True, kind)
     assert ours.read_bytes() == theirs.read_bytes()
 
 
-def test_e2e_section_checks_every_md5(tiny):
-    out = B.bench_e2e(tiny["tiny"].stream.path, CPU)
-    assert out["frames"] == 3 and len(out["runs"]) == B.RUNS
-    assert out["fps"] in out["runs"]
-    # the MD5 check fetches every picture's planes: the fetch span
-    assert "fetch" in out["split"] and "pack_native" in out["split"]
-
-
-def test_compute_section_keeps_outputs_on_the_device(tiny):
-    out = B.bench_compute(tiny["tiny"].stream.path, CPU)
-    assert out["frames"] == 3 and len(out["runs"]) == B.RUNS
-
-
 def test_stage_b_replay_equals_the_decode_on_every_replay(tiny):
-    rep, args, fps = B.bench_device_stage_b(tiny["tiny"].stream.path, CPU,
-                                            3, "tiny")
-    assert fps is None and rep.count == 3
-    frames = Decoder(recon_backend="inline").decode_bytes(
-        open(tiny["tiny"].stream.path, "rb").read())
+    rep = Replay(*capture_frame_program(_read(tiny["wpp"]), CPU), CPU,
+                 "tiny")
+    rep.run(3)
+    assert rep.count == 3
+    frames = Decoder(recon_backend="inline").decode_bytes(_read(tiny["wpp"]))
     last_p = frames[-1]
     n = sum(p.size for p in map(np.asarray, last_p.planes))
     assert rep.want.numel() == n
@@ -98,8 +74,7 @@ def test_stage_b_replay_equals_the_decode_on_every_replay(tiny):
 
 
 def test_stage_b_work_names_each_term(tiny):
-    _rep, args, _fps = B.bench_device_stage_b(tiny["tiny"].stream.path,
-                                              CPU, 1, "tiny")
+    args, _want = capture_frame_program(_read(tiny["wpp"]), CPU)
     work = stage_b_work(args)
     assert set(work) == set(STAGE_B_TERMS)
     assert all(work[k][0] > 0 for k in ("mc", "resid_add", "deblock", "sao",
@@ -114,7 +89,7 @@ def test_stage_b_work_names_each_term(tiny):
     assert work["sao"][0] == lf["sao"]
     assert work["deblock"][0] == lf["deblock_v"] + lf["deblock_h"]
     assert work["deblock"][1] == work["sao"][1] == 0
-    mc_args, ra_args = _p_frame_inputs(tiny["tiny"].stream.path)
+    mc_args, ra_args = _p_frame_inputs(tiny["wpp"])
     canvas, refs_l, refs_c, groups, _bd = mc_args
     assert work["mc"] == mc_work(refs_l, refs_c, mc_table(groups,
                                                           canvas.shape))
@@ -126,7 +101,7 @@ STAGE_KEYS = {"dequant_idct", "mc", "resid_add", "intra_wavefront",
 
 
 def test_stages_section_records_every_stage(tiny):
-    rep, out = B.bench_stages(tiny["tiny_stages"], CPU)
+    rep, out = stage_timings(tiny["nowpp"], CPU, 2, "tiny720")
     assert out["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}
     assert set(out["kernel_bound_us"]) == {f"{k}_tiny720"
                                            for k in STAGE_KEYS}
@@ -135,99 +110,9 @@ def test_stages_section_records_every_stage(tiny):
     assert rep.count == out["stageB_replays_tiny720"] == 2
 
 
-def test_shvc_section(tiny):
-    out = B.bench_shvc(tiny["tiny_shvc"], CPU)
-    assert set(out) == {"shvc_2layer_s", "shvc_el_only_s",
-                        "shvc_2layer_vs_el_only", "shvc_2layer_s_runs",
-                        "shvc_el_only_s_runs"}
-    assert len(out["shvc_2layer_s_runs"]) == B.RUNS
-
-
-def test_multihost_section_one_process_against_two_over_gloo(tiny):
-    out = B.bench_multihost(tiny["tiny_multihost"], CPU)
-    assert out["multihost_decode_s_1host"] > 0
-    assert out["multihost_decode_s_2host"] > 0
-    assert "1proc x 2 bands" in out["multihost_geometry"]
-    assert "2proc x 1 bands" in out["multihost_geometry"]
-
-
-TIME_KEYS = ("oracle_fps", "compute_fps", "compute_vs_oracle", "e2e_fps",
-             "stage_ms_per_frame", "stageB_replay_fps", "d2h_ms_per_frame",
-             "d2h_pinned_ms_per_frame", "h2d_ms_per_frame", "link_MBps",
-             "link_flagged", "link_rolling_median_MBps", "device_stageB",
-             "device_idle_share", "section_s", "kernel_us", "kernel_gbps",
-             "shvc_2layer_s", "shvc_el_only_s", "shvc_2layer_vs_el_only",
-             "multihost_scaling_efficiency", "multihost_decode_s",
-             "stageB_tiny720_device_fps")
-
-
-def _main_json(argv):
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = B.main(argv)
-    assert rc == 0
-    lines = buf.getvalue().strip().splitlines()
-    return json.loads(lines[-1])
-
-
-def test_main_prints_one_json_line_with_every_time_null(tiny):
-    got = _main_json(["--device", "cpu", "--config", "tiny", "--config",
-                      "tiny_stages"])
-    assert got["metric"] == "e2e_decode_fps_128x64_wpp_ipp"
-    assert got["value"] is None and got["vs_baseline"] is None
-    assert got["unit"] == "fps"
-    assert got["device"] == {"name": "cpu", "power_limit": None, "count": 0}
-    extra = got["extra"]
-    want = {
-        "oracle_fps", "compute_fps_tiny", "compute_fps_tiny_runs",
-        "compute_vs_oracle_tiny", "e2e_fps_tiny", "e2e_fps_tiny_runs",
-        "md5_ok_tiny", "frames_tiny", "stage_ms_per_frame",
-        "stageB_replay_fps_tiny", "stageB_replays_tiny",
-        "stageB_bytes_per_frame_tiny", "stageB_bytes_terms_tiny",
-        "stageB_bytes_vs_min_tiny", "d2h_ms_per_frame_tiny",
-        "d2h_pinned_ms_per_frame_tiny", "h2d_ms_per_frame_tiny",
-        "link_MBps", "link_flagged", "link_rolling_median_MBps",
-        "device_stageB_fps_tiny", "device_stageB_busy_ms_tiny",
-        "device_idle_share_tiny", "device_stageB_vs_oracle_tiny",
-        "kernel_max_abs_err", "kernel_bytes", "kernel_bound_us",
-        "kernel_bound_by", "kernel_us", "kernel_gbps",
-        "stageB_replay_fps_tiny720", "stageB_replays_tiny720",
-        "device_stageB_fps_tiny720", "device_stageB_busy_ms_tiny720",
-        "device_idle_share_tiny720", "stageB_tiny720_device_fps",
-        "section_s"}
-    assert set(extra) == want
-    for k, v in extra.items():
-        if k.startswith(TIME_KEYS):
-            assert v is None, k
-    assert extra["md5_ok_tiny"] is True and extra["frames_tiny"] == 3
-    assert extra["stageB_replays_tiny"] == 2
-    assert extra["kernel_max_abs_err"] == {"mc": 0, "resid_add": 0}
-    assert extra["stageB_bytes_per_frame_tiny"] > 0
-
-
-def test_main_with_multihost_and_shvc_names_their_keys(tiny):
-    extra = _main_json(["--device", "cpu", "--config", "tiny_multihost",
-                        "--config", "tiny_shvc"])["extra"]
-    assert set(extra) == {
-        "multihost_scaling_efficiency", "multihost_geometry",
-        "multihost_decode_s_1host", "multihost_decode_s_2host",
-        "multihost_cards", "shvc_2layer_s", "shvc_el_only_s",
-        "shvc_2layer_vs_el_only", "shvc_2layer_s_runs",
-        "shvc_el_only_s_runs", "section_s"}
-    assert all(v is None for k, v in extra.items()
-               if k.startswith(TIME_KEYS))
-
-
-def test_main_without_a_card_exits_nonzero(capsys):
-    if torch.cuda.is_available():
-        pytest.skip("a card is visible")
-    assert B.main([]) != 0
-    assert "CUDA is not available" in capsys.readouterr().err
-
-
 def _p_frame_inputs(path):
     """The mc and resid_add inputs of the stream's last P picture."""
-    args, _want = B.capture_frame_program(open(path, "rb").read(), CPU)
+    args, _want = capture_frame_program(_read(path), CPU)
     rec = StageInputs()
     with rec.installed():
         pipeline.frame_program(*args)
@@ -236,7 +121,7 @@ def _p_frame_inputs(path):
 
 def test_mc_and_resid_work_match_a_numpy_recount(tiny):
     (canvas, refs_l, refs_c, groups, _bd), (_c, fields, pools, _b) = \
-        _p_frame_inputs(tiny["tiny"].stream.path)
+        _p_frame_inputs(tiny["wpp"])
     table = mc_table(groups, canvas.shape)
     got_b, got_ops = mc_work(refs_l, refs_c, table)
     seen, ops, px = {False: set(), True: set()}, 0, 0
@@ -283,7 +168,7 @@ def test_stage_b_work_counts_a_coo_upload(tmp_path):
     path = tmp_path / "coo.265"
     path.write_bytes(b"".join(enc.encode_frame(synth_frame(
         "gradient", 256, 192, t, seed=3)) for t in range(2)))
-    args, _want = B.capture_frame_program(path.read_bytes(), CPU)
+    args, _want = capture_frame_program(path.read_bytes(), CPU)
     meta, meta16, meta8, avail, levels = args[:5]
     S = dict(args[10])
     coo_n, total = S["coo"]
@@ -303,7 +188,6 @@ def test_stage_b_work_counts_a_coo_upload(tmp_path):
     assert work["residuals"][0] == 2 * total + 36 * sum(S["nlv"]) \
         + 4 * pool_px
 
-
 def _plan_raising(n):
     def hook(pic, plan, dpb):
         hook.calls += 1
@@ -317,7 +201,7 @@ def _plan_raising(n):
 @pytest.mark.parametrize("raises", [False, True])
 def test_decoder_leaves_no_thread_behind(tiny, monkeypatch, backend,
                                          raises):
-    data = open(tiny["tiny"].stream.path, "rb").read()
+    data = _read(tiny["wpp"])
     before = set(threading.enumerate())
     kw = {}
     if raises and backend == "plan":
@@ -346,14 +230,16 @@ def test_decoder_leaves_no_thread_behind(tiny, monkeypatch, backend,
     assert set(threading.enumerate()) <= before
 
 
-def test_dist_worker_spreads_its_bands_over_devices_with_reps(tiny):
+def test_dist_worker_spreads_its_bands_over_devices_with_reps():
+    """One rank of two bands on two CPU devices, decoding the worker's own
+    tile stream twice."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     r = subprocess.run(
         [sys.executable, "-m", "hevc_tpu_torch.dist_worker", str(port), "0",
-         "1", "2", "--stream", tiny["tiny_multihost"].stream.path,
-         "--backend", "gloo", "--local-devices", "2", "--reps", "2"],
+         "1", "2", "--backend", "gloo", "--local-devices", "2", "--reps",
+         "2"],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
@@ -370,6 +256,7 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-def test_port_bench_imports_neither_jax_nor_hevc_tpu_nor_bench_py():
-    path = os.path.join(ROOT, "hevc_tpu_torch", "bench.py")
+@pytest.mark.parametrize("path", ["capture.py", "encoder/generate.py"])
+def test_imports_neither_jax_nor_hevc_tpu_nor_bench_py(path):
+    path = os.path.join(ROOT, "hevc_tpu_torch", path)
     assert not set(_imported_roots(path)) & {"jax", "hevc_tpu", "bench"}

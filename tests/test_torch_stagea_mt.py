@@ -16,9 +16,8 @@ from hevc_tpu_torch import native
 from hevc_tpu_torch.decoder.core import Decoder
 from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
 from hevc_tpu_torch.encoder.generate import synth_frame
-from torch_gate import native_ready
 
-pytestmark = pytest.mark.skipif(not native_ready(native),
+pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 
 CONFIGS = {

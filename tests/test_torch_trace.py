@@ -17,7 +17,6 @@ from hevc_tpu_torch import api, mc_cuda, native, pipeline, tables, trace
 from hevc_tpu_torch.encoder.core import EncoderConfig, IntraEncoder
 from hevc_tpu_torch.encoder.generate import synth_frame
 from hevc_tpu_torch.io.parser import split_access_units
-from torch_gate import native_ready
 
 CPU = "cpu"
 
@@ -170,7 +169,7 @@ def test_nested_spans_inherit_picture_and_parent():
     assert (h.pic, h.parent) == (7, o.sid)
 
 
-@pytest.mark.skipif(not native_ready(native),
+@pytest.mark.skipif(not native.available(),
                     reason="native toolchain unavailable")
 def test_each_picture_has_one_chain_of_spans():
     aus = _aus(4)
@@ -324,7 +323,7 @@ def test_upload_counts_the_bytes_it_copies():
     assert trace.report()["h2d_bytes"]["total"] == a.nbytes + 4 * (64 + 16)
 
 
-@pytest.mark.skipif(not native_ready(native),
+@pytest.mark.skipif(not native.available(),
                     reason="native toolchain unavailable")
 def test_h2d_bytes_sums_the_frame_programs_uploads(monkeypatch):
     aus = _aus(3)
