@@ -95,15 +95,51 @@ extern "C" int64_t hevc_native_pack_records(
     const PackP& P = *params;
     PackCtx ctx{params, z_order, slice_idx, tile_of_ctb};
 
-    // wavefront level maps per plane (component resolution), -1 = unset
-    int shapes[3][2];
-    shapes[0][0] = P.height;
-    shapes[0][1] = P.width;
-    shapes[1][0] = shapes[2][0] = P.height / P.sub_h;
-    shapes[1][1] = shapes[2][1] = P.width / P.sub_w;
-    std::vector<int32_t> lmap[3];
-    for (int p = 0; p < 3; p++)
-        lmap[p].assign((size_t)shapes[p][0] * shapes[p][1], -1);
+    // wavefront level maps per plane, one cell per cell of the plane's
+    // minimum block grid (4x4 luma samples, (4 / SubWidthC) x
+    // (4 / SubHeightC) chroma samples: h4 x w4 cells in every plane), on
+    // which every record's edges lie.  -1 = unset, 0 = decoded without
+    // intra, else the level.  Only intra records read the maps, so a
+    // picture without one keeps none; a plane without records gets none.
+    bool any_intra = false, has_plane[3] = {false, false, false};
+    for (int64_t t = 0; t < n_rec; t++) {
+        const int32_t* r = rec + t * REC_NCOLS;
+        any_intra |= r[REC_KIND] == KIND_INTRA;
+        has_plane[r[REC_PLANE]] = true;
+    }
+    const int mh = (P.height + 3) >> 2, mw = (P.width + 3) >> 2;
+    int gx[3], gy[3];  // log2 of a grid cell's width and height in samples
+    int32_t* lmap[3] = {nullptr, nullptr, nullptr};
+    int64_t cells = 0;
+    for (int p = 0; p < 3; p++) {
+        gx[p] = p ? 3 - P.sub_w : 2;
+        gy[p] = p ? 3 - P.sub_h : 2;
+        if (any_intra && has_plane[p])
+            cells += (int64_t)mh * mw;
+    }
+    // the maps' storage outlives the picture: one buffer per thread
+    static thread_local std::vector<int32_t> lmap_buf;
+    if (cells) {
+        if (lmap_buf.size() < (size_t)cells)
+            lmap_buf.resize(cells);
+        std::fill(lmap_buf.begin(), lmap_buf.begin() + cells, -1);
+        int32_t* next = lmap_buf.data();
+        for (int p = 0; p < 3; p++)
+            if (has_plane[p]) {
+                lmap[p] = next;
+                next += (size_t)mh * mw;
+            }
+    }
+    // marks a block's cells decoded (0) where no intra level is set
+    auto mark = [&](int32_t* m, int plane, int x, int y, int w, int h) {
+        if (!m)
+            return;
+        int i0 = x >> gx[plane], i1 = (x + w) >> gx[plane];
+        for (int j = y >> gy[plane]; j < (y + h) >> gy[plane]; j++)
+            for (int i = i0; i < i1; i++)
+                if (m[j * mw + i] < 0)
+                    m[j * mw + i] = 0;
+    };
 
     int32_t slot_count[4] = {0, 0, 0, 0};
     std::vector<int32_t> fill[4];  // per-class per-chunk fill counters
@@ -119,16 +155,20 @@ extern "C" int64_t hevc_native_pack_records(
         int kind = r[REC_KIND];
         int plane = r[REC_PLANE];
         int x = r[REC_X], y = r[REC_Y];
-        int32_t* m = lmap[plane].data();
-        int mh = shapes[plane][0], mw = shapes[plane][1];
+        // intra and residual blocks are square (REC_H 0)
+        int w = r[REC_W];
+        int h = kind == KIND_MC || kind == KIND_PCM ? r[REC_H] : w;
+        int32_t* m = lmap[plane];
         const int32_t* rg = P.reg[plane];
+        // every edge on the plane's grid (a conforming stream's blocks)
+        if (((x | w) & ((1 << gx[plane]) - 1))
+            || ((y | h) & ((1 << gy[plane]) - 1))) {
+            err = -6;
+            break;
+        }
 
         if (kind == KIND_MC) {
-            int w = r[REC_W], h = r[REC_H];
-            for (int j = y; j < y + h; j++)
-                for (int i = x; i < x + w; i++)
-                    if (m[j * mw + i] < 0)
-                        m[j * mw + i] = 0;
+            mark(m, plane, x, y, w, h);
             int is_ch = plane > 0 ? 1 : 0;
             int bi = (r[REC_FLAGS] & F_BI) ? 1 : 0;
             int lx = (r[REC_FLAGS] & F_LX) ? 1 : 0;
@@ -188,11 +228,7 @@ extern "C" int64_t hevc_native_pack_records(
             continue;
         }
         if (kind == KIND_PCM) {
-            int w = r[REC_W], h = r[REC_H];
-            for (int j = y; j < y + h; j++)
-                for (int i = x; i < x + w; i++)
-                    if (m[j * mw + i] < 0)
-                        m[j * mw + i] = 0;
+            mark(m, plane, x, y, w, h);
             int32_t* o = pcmrow + np_ * 6;
             np_++;
             o[0] = plane;
@@ -228,10 +264,7 @@ extern "C" int64_t hevc_native_pack_records(
             slot_of_rec[t] = slot;
         }
         if (kind == KIND_RESID) {
-            for (int j = y; j < y + n; j++)
-                for (int i = x; i < x + n; i++)
-                    if (m[j * mw + i] < 0)
-                        m[j * mw + i] = 0;
+            mark(m, plane, x, y, n, n);
             int32_t* o = residr + nr * 4;
             nr++;
             o[0] = cls;
@@ -242,26 +275,25 @@ extern "C" int64_t hevc_native_pack_records(
         }
 
         // intra: wavefront level = 1 + max level over the L-shaped band
-        int n2 = 2 * n;
-        int x0 = x - 1 < 0 ? 0 : x - 1;
-        int y0 = y - 1 < 0 ? 0 : y - 1;
+        // (the column left of the block and the row above it, each 2n
+        // samples long from the corner, clipped to the plane), in cells
+        int cx = x >> gx[plane], cy = y >> gy[plane];
+        int cw = n >> gx[plane], ch = n >> gy[plane];
         int lvl = 0;
-        if (x > 0) {
-            int yend = y + n2 < mh ? y + n2 : mh;
-            for (int j = y0; j < yend; j++)
-                for (int i = x0; i < x; i++)
-                    if (m[j * mw + i] + 1 > lvl)
-                        lvl = m[j * mw + i] + 1;
+        if (cx > 0) {
+            int jend = cy + 2 * ch < mh ? cy + 2 * ch : mh;
+            for (int j = cy > 0 ? cy - 1 : 0; j < jend; j++)
+                if (m[j * mw + cx - 1] + 1 > lvl)
+                    lvl = m[j * mw + cx - 1] + 1;
         }
-        if (y > 0) {
-            int xend = x + n2 < mw ? x + n2 : mw;
-            for (int j = y0; j < y; j++)
-                for (int i = x0; i < xend; i++)
-                    if (m[j * mw + i] + 1 > lvl)
-                        lvl = m[j * mw + i] + 1;
+        if (cy > 0) {
+            int iend = cx + 2 * cw < mw ? cx + 2 * cw : mw;
+            for (int i = cx > 0 ? cx - 1 : 0; i < iend; i++)
+                if (m[(cy - 1) * mw + i] + 1 > lvl)
+                    lvl = m[(cy - 1) * mw + i] + 1;
         }
-        for (int j = y; j < y + n; j++)
-            for (int i = x; i < x + n; i++)
+        for (int j = cy; j < cy + ch; j++)
+            for (int i = cx; i < cx + cw; i++)
                 m[j * mw + i] = lvl;
         if (lvl > max_chunk)
             max_chunk = lvl;
@@ -276,7 +308,7 @@ extern "C" int64_t hevc_native_pack_records(
         int xl = x * sx, yl = y * sy;
         uint8_t* bits = iavail + ni * 128;
         memset(bits, 0, 128);
-        for (int i = 0; i < n2; i++) {
+        for (int i = 0; i < 2 * n; i++) {
             if (y + i < rh
                 && ctx.available(xl, yl, xl - sx, (y + i) * sy))
                 bits[i] = 1;
@@ -310,6 +342,7 @@ extern "C" int64_t hevc_native_pack_records(
     out_counts[3] = nr;
     out_counts[4] = np_;
     out_counts[5] = max_chunk + 1;  // number of chunks (raw)
+    out_counts[6] = cells;          // level-map cells used (0: none)
     return err;
 }
 

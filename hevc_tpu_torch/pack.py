@@ -578,6 +578,7 @@ def pack_frame(pic):
     if rc != 0:
         raise RuntimeError(f"native pipeline pack failed (rc={rc})")
     ni, nl, nm, nr, npcm, n_chunks_raw = (int(v) for v in counts[:6])
+    trace.count("pack_map_cells", int(counts[6]))
     canvas0 = (chh, cww)
     if npcm:
         # PCM samples pre-fill the canvas; nothing else writes there
