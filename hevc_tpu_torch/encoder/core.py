@@ -70,6 +70,11 @@ class EncoderConfig:
     log2_ctb_size: int = 4
     log2_min_cb_size: int = 3
     bit_depth: int = 8
+    # bit depth of the planes handed to encode_frame; 0 = bit_depth.  A
+    # lower depth is shifted up to bit_depth before coding (an 8-bit
+    # master carried in a 10-bit chain); the variance policy's threshold
+    # is scaled with it
+    source_bit_depth: int = 0
     chroma_format_idc: int = 1
     log2_cu_size: int = 4  # target CU size for the "fixed" policy
     candidate_modes: tuple = (R.INTRA_PLANAR, R.INTRA_DC, 10, 26, 2, 18, 34)
@@ -413,8 +418,10 @@ class IntraEncoder:
             self.dpb = []
         self.pic = PictureState(sps, pps)
         self.src = []
+        up = cfg.bit_depth - (cfg.source_bit_depth or cfg.bit_depth)
+        self.src_scale = 1 << up
         for ci, p in enumerate(planes):
-            p = p.astype(np.int32)
+            p = p.astype(np.int32) << up
             tw = sps.width // (1 if ci == 0 else sps.sub_w)
             th = sps.height // (1 if ci == 0 else sps.sub_h)
             if p.shape != (th, tw):  # conformance-window padding
@@ -862,10 +869,11 @@ class IntraEncoder:
             return log2_size > cfg.log2_cu_size
         if cfg.split_policy == "random":
             return bool(self.rng.random() < 0.5)
-        # variance: split when the luma block is busy
+        # variance: split when the luma block is busy, in the source's
+        # units (a shifted-up source splits as it would at its own depth)
         size = 1 << log2_size
         blk = self.src[0][y0:y0 + size, x0:x0 + size]
-        return float(blk.std()) > 18.0
+        return float(blk.std()) > 18.0 * self.src_scale
 
     def _want_nxn(self) -> bool:
         cfg = self.cfg
