@@ -32,13 +32,16 @@
    the intra kernel on the captured I picture (``intra_place``: error 0,
    its time beside the plain version's and its bound) and times them
    there with CUDA events and ``torch.profiler`` (after the counted run,
-   which no profiler session may precede: see PERF.md); then the loop
-   filter kernels on 1080p pictures of the benchmark's banks
-   (``phase_loop_filter``: an IDR, a P and a leaf B of ``ra``, an IDR of
-   ``intra``), bit for bit, timed beside the plain versions, the
-   wrappers' host cost and the bound; then the residual kernel the same
-   way (``phase_residuals``: those pictures and the SHVC bank's base-layer
-   IDR and an enhancement-layer P).  The 1080p
+   which no profiler session may precede: see PERF.md); then both inter
+   kernels and the intra kernel on the first five pictures of the 10-bit
+   3840x2160 bank ``main10_2160/ra`` (``phase_bank_kernels``); then the
+   loop filter kernels on pictures of the benchmark's banks
+   (``phase_loop_filter``: an IDR, a P and a leaf B of ``main1080/ra``
+   and of ``main10_2160/ra``, an IDR of ``main1080/intra``), bit for
+   bit, timed beside the plain versions, the wrappers' host cost and the
+   bound; then the residual kernel the same way (``phase_residuals``:
+   those pictures and the SHVC bank's base-layer IDR and an
+   enhancement-layer P).  The 1080p
    streams are encoded once into ``.bench/`` by worker processes, one a
    stream, that start with the script and are done before the first
    1080p decode;
@@ -171,6 +174,7 @@ from hevc_tpu_torch.bounds import (HBM_BYTES_S, bound_ms, intra_work,
                                    loop_filter_work, mc_work, resid_work,
                                    residual_work)
 from hevc_tpu_torch.capture import (Capture, intra_args, kernel_errors,
+                                    mc_error, resid_add_error,
                                     stage_timings)
 from hevc_tpu_torch.device import cuda_ms, profiler_ms
 from hevc_tpu_torch.encoder.generate import synth_stream
@@ -685,10 +689,12 @@ def phase_real_kernels(cap, dev, smi):
 
 
 def phase_loop_filter(dev, smi):
-    """The loop filter kernels on 1080p pictures of the benchmark's banks:
-    the first access units of each bank's first segment decoded with the
-    wrappers' inputs captured (``capture.captured_filters``), then on an
-    IDR, a P and a leaf B of ``ra`` and the IDR of ``intra``, bit for bit
+    """The loop filter kernels on pictures of the benchmark's banks: the
+    first access units of each bank's first segment decoded with the
+    wrappers' inputs captured (``capture.captured_filters``), then on the
+    pictures of ``filter_cases.BANK_PICTURES`` (an IDR, a P and a leaf B of
+    ``main1080/ra`` and of the 10-bit 3840x2160 ``main10_2160/ra``, the
+    IDR of ``main1080/intra``), bit for bit
     against the plain versions on the card (tolerance 0); per picture the
     three launches' ms by CUDA events, each call deblocking a fresh copy of
     the captured planes (deblocking writes in place), less the copies' own
@@ -698,16 +704,17 @@ def phase_loop_filter(dev, smi):
     at the end.  Returns the RA P picture's (error, ms, plain ms, bound)
     for the kernel table."""
     import torch
-    from hevc_tpu_torch import filters_cuda, probes
+    from hevc_tpu_torch import filter_cases, filters_cuda, probes
     from hevc_tpu_torch.capture import (bank_prefix, captured_filters,
                                         loop_filter_errors, pick_picture)
+    data = os.path.dirname(BANKS)
     rows = {}
-    for traffic, n_aus, kinds in (("ra", 5, "IPB"), ("intra", 1, "I")):
+    for bank, (n_aus, kinds, shape) in filter_cases.BANK_PICTURES.items():
         calls = captured_filters(
-            bank_prefix(os.path.join(BANKS, traffic), n_aus), dev)
+            bank_prefix(os.path.join(data, bank), n_aus), dev)
         for kind in kinds:
             call = pick_picture(calls, kind)
-            label = f"{traffic} {kind} POC {call['at'][1]}"
+            label = f"{bank} {kind} POC {call['at'][1]}"
             errs = loop_filter_errors(call)
             err = max(errs.values())
             assert errs == {"deblock_planes": 0, "sao_planes": 0}, \
@@ -715,6 +722,7 @@ def phase_loop_filter(dev, smi):
             LOOP_FILTER_ERRORS.append((label, err))
             (dplanes, *da), dk = call["deblock_planes"]
             (splanes, *sa), sk = call["sao_planes"]
+            assert tuple(dplanes[0].shape) == shape, (label, dplanes[0].shape)
             work = [p.clone() for p in dplanes]
 
             def fresh(work=work, dplanes=dplanes):
@@ -745,22 +753,70 @@ def phase_loop_filter(dev, smi):
                 nf4 is not None).values())
             bound = bound_ms(n_bytes, 0)
             rows[label] = (err, ms, plain_ms, bound)
-            log(f"loop filter, {label} (1080p {len(dplanes)} planes): "
+            log(f"loop filter, {label} ({shape[1]}x{shape[0]} "
+                f"{len(dplanes)} planes of {dplanes[0].dtype}): "
                 f"kernels == plain (error 0); 3 launches {ms} ms by CUDA "
                 f"events, plain {plain_ms} ms ({plain_ms / ms:.0f}x), "
                 f"wrappers' host {host} us a picture; bound {bound[0]} ms "
                 f"({bound[1]}, {n_bytes} B; kernels at {bound[0] / ms:.3f} "
                 f"of it) ({smi})")
-    return next(v for k, v in rows.items() if k.startswith("ra P"))
+    return next(v for k, v in rows.items() if k.startswith("main1080/ra P"))
+
+
+def phase_bank_kernels(dev, smi):
+    """MC, the residual add and the intra kernel on the 10-bit 3840x2160
+    bank (``main10_2160/ra``): its first five access units (an IDR, a P and
+    three B) decoded with every MD5 checked, the pack inline and each
+    wrapper's inputs captured; every inter picture's MC and residual add
+    and the intra records of the IDR and of the inter picture with the
+    most, bit for bit against the plain versions on the card (tolerance
+    0).  Returns each kernel's largest error, for the kernel table."""
+    from hevc_tpu_torch import decoder
+    from hevc_tpu_torch.capture import bank_prefix
+    bank = "main10_2160/ra"
+    data = bank_prefix(os.path.join(os.path.dirname(BANKS), bank), 5)
+    cap = Capture()
+    os.environ["HEVC_TPU_ASYNC_PACK"] = "0"
+    try:
+        with cap.installed():
+            frames = decoder.TorchDecoder(check_md5=True,
+                                          device=dev).decode_bytes(data)
+    finally:
+        os.environ.pop("HEVC_TPU_ASYNC_PACK")
+    assert len(frames) == 5 and all(f.md5_ok is True for f in frames), \
+        f"{bank}: MD5 {[f.md5_ok for f in frames]}"
+    assert cap.mc and cap.resid and {a[4] for a in cap.mc} == {10}, bank
+    errs = {}
+    for name, fn, calls, ats in (("mc", mc_error, cap.mc, cap.mc_at),
+                                 ("resid_add", resid_add_error, cap.resid,
+                                  cap.resid_at)):
+        per = {at[1]: fn(args) for args, at in zip(calls, ats)}
+        assert not any(per.values()), \
+            f"{bank}: {name} kernel != plain, error by POC {per}"
+        errs[name] = max(per.values())
+    assert cap.intra_at[0] not in cap.mc_at, f"{bank}: no IDR first"
+    intra_place(f"{bank} I POC {cap.intra_at[0][1]}", cap.intra[0], smi)
+    inter = [i for i, at in enumerate(cap.intra_at)
+             if at in cap.mc_at and intra_records(cap.intra[i])]
+    if inter:
+        k = max(inter, key=lambda i: intra_records(cap.intra[i]))
+        intra_place(f"{bank} inter POC {cap.intra_at[k][1]}", cap.intra[k],
+                    smi)
+    log(f"{bank}: 5 pictures 3840x2160 10-bit, every MD5 correct; "
+        f"mc_kernel == plain on {len(cap.mc)} pictures, resid_add_kernel "
+        f"on {len(cap.resid)}, the intra kernel on "
+        f"{1 + bool(inter)} (error 0) ({smi})")
+    return errs
 
 
 def phase_residuals(dev, smi):
     """The residual kernel on pictures of the benchmark's banks: the first
     access units of each bank's first segment decoded with the stage's
     inputs captured (``capture.captured_residuals``), then on the pictures
-    of ``resid_cases.BANK_PICTURES`` (an IDR, a P and a leaf B of ``ra``,
-    the IDR of ``intra``, the base layer's IDR and an enhancement-layer P
-    of ``shvc1080_x1.5/ldp``), bit for bit
+    of ``resid_cases.BANK_PICTURES`` (an IDR, a P and a leaf B of
+    ``main1080/ra`` and of the 10-bit 3840x2160 ``main10_2160/ra``, the
+    IDR of ``intra``, the base layer's IDR and an enhancement-layer P of
+    ``shvc1080_x1.5/ldp``), bit for bit
     against the plain version on the card (tolerance 0, one launch); per
     picture the launch's ms by CUDA events, the plain version's ms, the
     wrapper's host us (``probes.host_us``) and the bound
@@ -2024,6 +2080,7 @@ def run(smi, dev):
         f"chunks {[s['live'] for s in seen]})")
 
     real = phase_real_kernels(cap, dev, smi)
+    uhd = phase_bank_kernels(dev, smi)
     loop_filter = phase_loop_filter(dev, smi)
     resid_tx = phase_residuals(dev, smi)
     phase_stage_b(dev, smi)
@@ -2039,7 +2096,8 @@ def run(smi, dev):
         err, ms, plain_ms, bound = real[name]
         kernels.append(kernel_row(
             f"{name}_kernel", "hevc_tpu_torch/csrc/mc.cu",
-            f"hevc_tpu/tpu/mc_pallas.py:{line}", counts[name], err, ms,
+            f"hevc_tpu/tpu/mc_pallas.py:{line}", counts[name],
+            max(err, uhd[name]), ms,
             plain_ms, None, bound))
 
     n, err, ms, plain_ms, bound = phase_cabac(data, dev)

@@ -224,9 +224,9 @@ class StageInputs:
                 setattr(mod, name, fn)
 
 
-def kernel_errors(mc_args, resid_args):
-    """(mc_err, resid_add_err): each inter kernel against its plain version
-    on one picture's (or band's) captured wrapper inputs, on their card."""
+def mc_error(mc_args):
+    """The largest |kernel - plain| of MC on one picture's (or band's)
+    captured wrapper inputs, on their card."""
     canvas, refs_l, refs_c, groups, bd = mc_args
     table = mc_cuda.mc_table(groups, canvas.shape)
     rows = torch.from_numpy(table.rows).to(canvas.device).int()
@@ -234,11 +234,22 @@ def kernel_errors(mc_args, resid_args):
     want = mc_plain(canvas.clone(), refs_l, refs_c,
                     mc_cuda.table_groups(table, rows), bd,
                     tables_from_reference(canvas.device))
-    mc_err = int((got - want).abs().max())
+    return int((got - want).abs().max())
+
+
+def resid_add_error(resid_args):
+    """The largest |kernel - plain| of the residual add on one picture's
+    (or band's) captured wrapper inputs, on their card."""
     canvas, fields, pools, bd = resid_args
     got = mc_cuda.resid_add(canvas.clone(), fields, pools, bd)
     want = resid_add_plain(canvas.clone(), fields, pools, bd)
-    return mc_err, int((got - want).abs().max())
+    return int((got - want).abs().max())
+
+
+def kernel_errors(mc_args, resid_args):
+    """(mc_err, resid_add_err): each inter kernel against its plain version
+    on one picture's (or band's) captured wrapper inputs, on their card."""
+    return mc_error(mc_args), resid_add_error(resid_args)
 
 
 def _sync(dev):

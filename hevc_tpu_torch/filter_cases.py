@@ -23,6 +23,13 @@ from .tables import tables_from_reference
 
 SUB = {0: (1, 1), 1: (2, 2), 2: (2, 1), 3: (1, 1)}  # format -> sub_w, sub_h
 
+# the pictures of the benchmark's banks (``benchmark/data/<bank>``) the
+# kernels are held on: bank -> (access units of its first segment decoded,
+# the kinds of picture taken, the luma plane's (height, width))
+BANK_PICTURES = {"main1080/ra": (5, "IPB", (1080, 1920)),
+                 "main1080/intra": (1, "I", (1080, 1920)),
+                 "main10_2160/ra": (5, "IPB", (2160, 3840))}
+
 # name -> format, bit depth, luma height and width, log2 CTB, several
 # slices (offset maps, SAO edge flags), nf map, deblocking, SAO
 CASES = {

@@ -7,9 +7,9 @@ plain version; for CUDA tensors it checks every tensor, launches
 any refusal: it never falls back.  The live chunks come from the host's
 ``counts`` (``intra.chunk_counts`` of the pack's host buffers), so the
 call never waits on the card.  Each launch adds one to
-``build.launches["intra"]``.  The kernel writes the canvas in place and
-returns it; its angle tables are constants of the kernel, so ``tables``
-is read only by the plain version.
+``build.launches["intra"]`` and to the ``intra_launches`` counter.  The
+kernel writes the canvas in place and returns it; its angle tables are
+constants of the kernel, so ``tables`` is read only by the plain version.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import ctypes as C
 import numpy as np
 import torch
 
-from . import build, intra
+from . import build, intra, trace
 
 
 class IntraParams(C.Structure):
@@ -90,6 +90,7 @@ def launch_intra(canvas, params: IntraParams, table: np.ndarray):
                       C.byref(params), table.ctypes.data, table.shape[0],
                       build.stream(dev), C.byref(done))
     build.launches["intra"] += done.value
+    trace.count("intra_launches", done.value)
     build.raise_on(rc, "intra_chunk_kernel")
     return canvas
 

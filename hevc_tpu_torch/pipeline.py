@@ -356,6 +356,7 @@ class LazyPlanes:
                 if _fused(dev):
                     with trace.span("fetch", **job):
                         buf = dev[0].cpu().numpy()
+                    trace.count("d2h_bytes", buf.nbytes)
                     if buf.dtype == np.int16:
                         buf = buf.view(np.uint16)
                     planes, off = [], 0
@@ -365,6 +366,7 @@ class LazyPlanes:
                 else:
                     with trace.span("fetch", **job):
                         planes = [d.cpu().numpy() for d in dev]
+                    trace.count("d2h_bytes", sum(p.nbytes for p in planes))
                 if self._dtype is not None:
                     planes = [p.astype(self._dtype) for p in planes]
                 if self._crop is not None:

@@ -41,7 +41,8 @@ CASES = {
 # the (kind, layer) of each picture taken)
 BANK_PICTURES = {"main1080/ra": (5, (("I", 0), ("P", 0), ("B", 0))),
                  "main1080/intra": (1, (("I", 0),)),
-                 "shvc1080_x1.5/ldp": (2, (("I", 0), ("P", 1)))}
+                 "shvc1080_x1.5/ldp": (2, (("I", 0), ("P", 1))),
+                 "main10_2160/ra": (5, (("I", 0), ("P", 0), ("B", 0)))}
 
 
 def _levels(rng, n, s, limits):

@@ -5,9 +5,9 @@ Always on, cheap enough to stay compiled in:
 
 - ``span(name)`` accumulates calls, wall seconds and self seconds (less
   the spans nested in it on its thread) per name (``time.perf_counter``);
-- ``count(name, n)`` accumulates a counter (``h2d_bytes``,
-  ``device_allocs``, ``loop_filter_launches``, ``pack_map_cells``,
-  ``api_layer_held``, ``api_layer_dropped``);
+- ``count(name, n)`` accumulates a counter (``h2d_bytes``, ``d2h_bytes``,
+  ``device_allocs``, ``loop_filter_launches``, ``intra_launches``,
+  ``pack_map_cells``, ``api_layer_held``, ``api_layer_dropped``);
 - ``report()`` returns both, and the wall seconds since ``reset()`` under
   the reserved name ``WALL``.  Accumulation is thread-safe: the caller,
   the pack worker and the fetch worker all record.

@@ -318,21 +318,22 @@ BANKS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("traffic,n_aus,kinds", [("ra", 5, "IPB"),
-                                                 ("intra", 1, "I")])
-def test_loop_filter_kernels_match_plain_on_bank_pictures_on_card(
-        card, traffic, n_aus, kinds):
+@pytest.mark.parametrize("bank", sorted(filter_cases.BANK_PICTURES))
+def test_loop_filter_kernels_match_plain_on_bank_pictures_on_card(card,
+                                                                  bank):
     """The first access units of each bank's first segment decoded on the
     card with the loop filters' inputs captured: the kernels against the
-    plain versions on an IDR, a P and a leaf B (RA) or an IDR (intra)."""
+    plain versions on an IDR, a P and a leaf B (RA, 1080p 8-bit and
+    2160p 10-bit) or an IDR (intra)."""
     from hevc_tpu_torch.capture import (bank_prefix, captured_filters,
                                         loop_filter_errors, pick_picture)
-    calls = captured_filters(
-        bank_prefix(os.path.join(BANKS, traffic), n_aus), card)
+    n_aus, kinds, shape = filter_cases.BANK_PICTURES[bank]
+    calls = captured_filters(bank_prefix(os.path.join(
+        os.path.dirname(BANKS), bank), n_aus), card)
     assert len(calls) == n_aus
     for kind in kinds:
         call = pick_picture(calls, kind)
-        assert call["deblock_planes"][0][0][0].shape == (1080, 1920)
+        assert call["deblock_planes"][0][0][0].shape == shape
         errs = loop_filter_errors(call)
         assert errs == {"deblock_planes": 0, "sao_planes": 0}, (kind, errs)
 
@@ -470,6 +471,27 @@ def test_fuzz_config_decodes_on_card(card, seed):
     from torch_fuzz import fuzz_stream
     cfg, data = fuzz_stream(seed)
     _decode_on_card(card, data, f"fuzz seed {seed}: {cfg}")
+
+
+@pytest.mark.cuda
+def test_main10_2160_configuration_decodes_on_card(card):
+    """The benchmark's ``main10_2160`` settings under its ``ra`` mix, cut
+    to 256x144 (4 CTB columns, a partial third CTB row) and 8 pictures:
+    the hand kernels at 10 bits, 4:2:0, 64x64 CTBs, WPP, deblocking and
+    SAO, bit for bit the inline decoder, every picture through the frame
+    program and the intra kernel's counter at its launches."""
+    from benchmark import bank, make_bank
+    cfg = bank.config("main10_2160")
+    cfg["encoder"].update(width=256, height=144)
+    mix = dict(bank.traffic("ra"), pictures=8)
+    data = b"".join(make_bank.encode_segment(cfg, mix, 0))
+    trace.reset()
+    before = build.launches["intra"]
+    n = _decode_on_card(card, data, "main10_2160 at 256x144")
+    assert n["mc"] > 0 and n["resid_add"] > 0, n
+    launched = build.launches["intra"] - before
+    assert launched > 0
+    assert trace.report()["intra_launches"]["total"] == launched
 
 
 def _shvc_cases():
@@ -1000,6 +1022,23 @@ def test_intra_kernel_matches_plain_on_random_cases_on_card(card, seed):
     want = intra.reconstruct_wavefront(canvas.clone(), scal, avail, resids,
                                        bd, tabs, counts)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_intra_launches_counter_is_the_live_chunks_on_card(card, seed):
+    """The ``intra_launches`` counter adds one a launch: the live chunks of
+    the picture's counts."""
+    case = random_case(seed)
+    counts = intra.chunk_counts(case[1])
+    canvas, scal, avail, resids, bd = _on(case, card)
+    trace.reset()
+    intra_cuda.reconstruct_wavefront(canvas, scal, avail, resids, bd,
+                                     tables_from_reference(card), counts)
+    torch.cuda.synchronize()
+    got = trace.report()["intra_launches"]
+    assert got["total"] == intra_cuda.live_chunks(counts) > 0
+    assert got["calls"] == 1
 
 
 @pytest.mark.cuda

@@ -40,4 +40,7 @@ def test_sampler_copy_draws_the_fuzz_matrix_configs():
     for seed in range(N_CONFIGS):
         a = _sample_config(np.random.default_rng(911 + seed))
         b = sample_config(np.random.default_rng(911 + seed))
-        assert dataclasses.asdict(a) == dataclasses.asdict(b), seed
+        port = dataclasses.asdict(b)
+        # the port's one field the JAX package lacks, at its default
+        assert port.pop("source_bit_depth") == 0, seed
+        assert dataclasses.asdict(a) == port, seed

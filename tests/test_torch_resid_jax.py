@@ -84,5 +84,5 @@ def test_kernel_code_matches_the_jax_package_on_bank_pictures(
     plain = resid_cuda.residuals_plain(levels, rmeta, bd, scale,
                                        tables_from_reference(CPU))
     _same(got, [p.numpy() for p in plain], what)
-    # a 1080p (or 720p) picture's records, all four classes at work
+    # a 2160p, 1080p or 720p picture's records, all four classes at work
     assert sum(m.shape[0] for m in rmeta) > 1000, what
